@@ -9,8 +9,9 @@ Phases, one JSON line each (times in ms):
      (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the same inputs on
      the card, exactly (K1 ff mul/add/sub on the BLS12-381 base and scalar
-     fields, each its own build, and on the BLS12-377 base field; K2a the six
-     G1 formulas; K3 the digit sort), with the kernel's, the plain version's
+     fields, the BN254 scalar field and the BLS12-377 base field; K2a the six
+     G1 formulas; K3 the digit sort; K4a/K4b/K4c the NTT stages on the BN254
+     and BLS12-381 scalar fields), with the kernel's, the plain version's
      and, where one PyTorch call computes the same function, that call's
      time;
   3. a 2^12-point MSM against the host big-int oracle;
@@ -18,7 +19,16 @@ Phases, one JSON line each (times in ms):
      commit (hiding) -> batch_open -> batch_check, the opened value checked
      against host Horner evaluation, a tampered value rejected, and the
      launch count of every kernel over the run; then the check stage's two
-     MSMs and its pairing, timed apart on the same inputs.
+     MSMs and its pairing, timed apart on the same inputs;
+  5. ntt: a 2^22-point NTT and iNTT over BN254 Fr (K4b + K4c) and a 2^9 one
+     (K4a), against the portable field-last route, the round trip and host
+     Horner at four points;
+  6. ligero: MultilinearLigero over BN254 Fr at 22 variables, then
+     UnivariateLigero over BLS12-381 Fr at degree 2^20 - 1, setup -> commit
+     -> batch_open -> batch_check, the value against a host evaluation, a
+     tampered value rejected, the launches; then commit's parts timed apart.
+Phases 4-6 are the paths: each runs with every launch count set to 0 just
+before it and read just after; the kernel table sums them.
 Then the kernel table, the nvidia-smi line, and {"ok": true, "device": ...}.
 Any failure exits non-zero; so does a machine without a CUDA device.
 """
@@ -35,6 +45,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 IMAD_PER_SM_PER_CLK = 64  # 32-bit integer multiply-add, compute capability 9.0
 SENTINEL = 1 << 16
 LOG_DEGREE = 20  # the main path's degree is 2^20 - 1
+LIGERO_NUM_VARS = 22  # the top of the reference's Ligero bench (ligero_ml_times.rs)
+NTT_LOG_N = 22
+IMAD_PER_PRODUCT = 4 * 8 * 8 + 8  # CIOS on 8 32-bit words
 
 
 def emit(obj):
@@ -62,35 +75,93 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def timed(into, name, fn):
+    """fn(), its host wall ms (between two synchronizes) stored at into[name]."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    into[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
 class Smoke:
     # K1 builds the main path runs: the base field's mul (normalisation) and
     # sub (point negation), the scalar field's mul and add (from_mont,
     # evaluation, division)
     MAIN_PATH_FF = ("ff_mont_mul[fq_bls12_381]", "ff_sub[fq_bls12_381]",
                     "ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")
+    # and those the Ligero paths run: the BN254 scalar field's mul, add and
+    # sub (tensors, folds, v = b^T M, column bytes) for MultilinearLigero,
+    # BLS12-381's mul and add for UnivariateLigero
+    LIGERO_FF = {"ml": ("ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]", "ff_sub[fr_bn254]"),
+                 "uni": ("ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")}
+    NTT_KERNELS = ("ntt_butterfly", "ntt_fused_stages", "ntt_stage")
+    # phase 2's K4 shape: Ligero's 256 rows of 2^15 points, and K4a's pairs
+    NTT_KERNEL_SHAPE = (1 << 23, 15, 1 << 21)
 
     def __init__(self):
         import torch
 
-        from poly_commit_tpu_torch.core import ec_lf, ff, sort_gpu
+        from poly_commit_tpu_torch.core import ec_lf, ff, ntt_lf, sort_gpu
 
         self.torch = torch
         self.dev = torch.device("cuda")
         self.gen = torch.Generator(device=self.dev)
         self.gen.manual_seed(20261016)
         self.kernels = {}  # name -> JSON entry
+        self.totals = {}  # name -> launches summed over the driven paths
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
         self.wrappers = {
             **{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
             **{f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS},
             "digit_sort": sort_gpu.digit_sort,
+            **{f"ntt_{w.__name__}": w for w in ntt_lf.WRAPPERS},
         }
+        ntt_src = "poly_commit_tpu_torch/csrc/ntt.cu"
         self.sources = {"ff": "poly_commit_tpu_torch/csrc/ff.cu",
                         "ec": "poly_commit_tpu_torch/csrc/ec_g1.cu",
-                        "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu"}
+                        "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu",
+                        "k4a": ntt_src, "k4b": ntt_src, "k4c": ntt_src}
         self.replaces = {"ff": "poly_commit_tpu/core/ff.py:293",
                          "ec": "poly_commit_tpu/core/ec_lf.py:455",
-                         "digit": "poly_commit_tpu/core/sort_tpu.py:141"}
+                         "digit": "poly_commit_tpu/core/sort_tpu.py:141",
+                         "k4a": "poly_commit_tpu/core/ntt_lf.py:48",
+                         "k4b": "poly_commit_tpu/core/ntt_lf.py:93",
+                         "k4c": "poly_commit_tpu/core/ntt_lf.py:179"}
+
+    # -- launch counts over a driven path -----------------------------------
+    def reset_counts(self):
+        for w in self.wrappers.values():
+            w.launches = 0
+        for w in self.ff_ops.values():
+            w.launches_by_field.clear()
+
+    def read_counts(self):
+        """(launches per wrapper, launches per K1 build), added to the totals."""
+        launches = {name: w.launches for name, w in self.wrappers.items()}
+        by_field = {f"ff_{w.__name__}[{f}]": count for w in self.ff_ops.values()
+                    for f, count in w.launches_by_field.items()}
+        for name, count in {**launches, **by_field}.items():
+            self.totals[name] = self.totals.get(name, 0) + count
+        return launches, by_field
+
+    def all_launched(self, launches, by_field, needed):
+        """Every kernel in ``needed`` ran in this path, and every K1 build
+        that ran has a phase-2 entry (held against its plain version)."""
+        counts = {**launches, **by_field}
+        return all(counts.get(k, 0) > 0 for k in needed) and all(k in self.kernels for k in by_field)
+
+    def finish_table(self):
+        """Each entry's launches over the paths; K1 builds no path ran are
+        dropped. False if any other kernel never ran."""
+        for name, entry in self.kernels.items():
+            entry["launches"] = self.totals.get(name, 0)
+        for name in [k for k, v in self.kernels.items() if not v["launches"] and k.startswith("ff_")]:
+            del self.kernels[name]
+        return all(v["launches"] > 0 for v in self.kernels.values())
 
     # -- helpers ----------------------------------------------------------
     def rand_field(self, spec, n):
@@ -142,9 +213,10 @@ class Smoke:
 
         ok = True
         # the main path's shape: 2^20 lanes of the scalar field (the prover's
-        # polynomial work) and of the base field (the SRS normalisation).
-        # BLS12-377's base field runs the same 12-word build as BLS12-381's.
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BLS12_377):
+        # polynomial work) and of the base field (the SRS normalisation);
+        # BN254's scalar field is Ligero's. BLS12-377's base field runs the
+        # same 12-word build as BLS12-381's.
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FQ_BLS12_377):
             n = 1 << 20
             a, b = self.rand_field(spec, n), self.rand_field(spec, n)
             a = ff.plain("add", spec, a, b)  # values up to 2p: the lazy range
@@ -283,6 +355,67 @@ class Smoke:
               "library_ms": library_ms, "bound_ms": self.kernels["digit_sort"]["bound_ms"]})
         return ok
 
+    def check_ntt_kernels(self):
+        """K4a, K4b and K4c against their plain versions at the Ligero path's
+        shape (256 rows of 2^15 points: 2^23 elements; K4c at the first
+        stage past the block), K4a on 2^21 pairs; both scalar fields, timed
+        on BN254's (one 8-word build serves both)."""
+        from poly_commit_tpu_torch.core import ff, ntt_lf
+        from poly_commit_tpu_torch.core import field_params as FP
+        from poly_commit_tpu_torch.core import ntt as NTT
+
+        torch = self.torch
+        total, log_n, pairs = self.NTT_KERNEL_SHAPE
+        block = ntt_lf.FUSE_BLOCK
+        n_fused = s_big = block.bit_length() - 1
+        errs = {"k4a": 0, "k4b": 0, "k4c": 0}
+        for spec in (FP.FR_BLS12_381, FP.FR_BN254):
+            lazy = lambda n: ff.plain("add", spec, self.rand_field(spec, n), self.rand_field(spec, n))  # noqa: E731
+            tws = NTT.stage_twiddles(spec, log_n, False, self.dev)
+            table = ntt_lf.fused_table(tws, n_fused)
+            a = lazy(total)
+            u, w, tw = lazy(pairs), lazy(pairs), lazy(pairs)
+            runs = {
+                "k4a": (lambda: ntt_lf.butterfly(spec, u, w, tw),
+                        lambda: ntt_lf.butterfly_plain(spec, u, w, tw)),
+                "k4b": (lambda: ntt_lf.fused_stages(spec, a, table, n_fused, block),
+                        lambda: ntt_lf.fused_stages_plain(spec, a, table, n_fused, block)),
+                "k4c": (lambda: ntt_lf.stage(spec, a, tws[s_big], s_big),
+                        lambda: ntt_lf.stage_plain(spec, a, tws[s_big], s_big)),
+            }
+            for kind, (kernel, plain) in runs.items():
+                got, want = kernel(), plain()
+                got, want = (got, want) if kind != "k4a" else (torch.cat(got, 1), torch.cat(want, 1))
+                err = self.canon_err(spec, got, want)
+                errs[kind] = max(errs[kind], err)
+                line = {"phase": "kernels", "kernel": kind, "field": spec.name, "max_abs_err": err}
+                if spec is not FP.FR_BN254:
+                    emit(line)
+                    continue
+                ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 1)
+                L4 = spec.n_limbs * 4  # bytes of one element at int32 per 16-bit limb
+                if kind == "k4a":  # u, w, tw read; lo, hi written
+                    name, n_bytes, n_imad = "ntt_butterfly", 5 * pairs * L4, pairs * IMAD_PER_PRODUCT
+                    shape = {"pairs": pairs}
+                elif kind == "k4b":  # each element read and written once, the table read once
+                    name = "ntt_fused_stages"
+                    n_bytes = 2 * total * L4 + table.shape[1] * L4
+                    n_imad = n_fused * (total // 2) * IMAD_PER_PRODUCT
+                    shape = {"total": total, "block": block, "stages": n_fused}
+                else:  # each element read and written once, the stage's twiddles read once
+                    name = "ntt_stage"
+                    n_bytes = 2 * total * L4 + (1 << s_big) * L4
+                    n_imad = (total // 2) * IMAD_PER_PRODUCT
+                    shape = {"total": total, "stage": s_big}
+                self.entry(name, kind, None, ms, plain_ms, n_bytes, n_imad)
+                packed_ms = max(n_bytes / 2 / HBM_BYTES_PER_S, n_imad / self.imad_per_s) * 1e3
+                emit({**line, "kernel": name, **shape, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": self.kernels[name]["bound_ms"], "packed_bound_ms": packed_ms})
+            del a, u, w, tw, runs
+        for kind, name in zip(("k4a", "k4b", "k4c"), self.NTT_KERNELS):
+            self.kernels[name]["max_abs_err"] = errs[kind]  # over both fields
+        return all(e == 0 for e in errs.values())
+
     # -- phase 3 ----------------------------------------------------------
     def check_msm(self):
         import random
@@ -326,17 +459,9 @@ class Smoke:
         stages = {}
 
         def stage(name, fn, into=stages):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            into[name] = (time.perf_counter() - t0) * 1e3
-            return out
+            return timed(into, name, fn)
 
-        for w in self.wrappers.values():
-            w.launches = 0
-        for w in self.ff_ops.values():
-            w.launches_by_field.clear()
+        self.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         pp = stage("setup", lambda: PC.setup(degree, rng=rng, device=self.dev))
         ck, vk = stage("trim", lambda: PC.trim(pp, degree, 1))
@@ -351,9 +476,7 @@ class Smoke:
         bad = {k: (v + 1) % spec.modulus for k, v in values.items()}
         rejected = not stage("check_tampered", lambda: PC.batch_check(
             vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
-        launches = {name: w.launches for name, w in self.wrappers.items()}
-        ff_by_field = {f"ff_{w.__name__}[{f}]": count for w in self.ff_ops.values()
-                       for f, count in w.launches_by_field.items()}
+        launches, ff_by_field = self.read_counts()
 
         # the check stage apart, on this run's commitment and proof: its two
         # MSMs (2 points and 1, complete mixed add) and the pairing of two G1
@@ -376,23 +499,156 @@ class Smoke:
         for c in reversed(ints):
             acc = (acc * z + c) % spec.modulus
         value_ok = values[("p", z)] == acc
-        for name, count in {**launches, **ff_by_field}.items():
-            if name in self.kernels:
-                self.kernels[name]["launches"] = count
         # every K2a formula and K3 ran, every K1 build of the main path ran,
         # and no K1 build ran that phase 2 did not hold against its plain version
-        needed = [k for k in launches if not k.startswith("ff_")]
-        needed += self.MAIN_PATH_FF
-        all_launched = (all(self.kernels[k]["launches"] for k in needed)
-                        and all(k in self.kernels for k in ff_by_field))
+        needed = [k for k in launches if k.startswith(("ec_", "digit"))] + list(self.MAIN_PATH_FF)
+        all_launched = self.all_launched(launches, ff_by_field, needed)
         emit({"phase": "main_path", "scheme": "MarlinKZG10/BLS12-381", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "check_split_ms": split, "check": bool(ok),
               "tampered_rejected": rejected, "value_matches_host": value_ok, "launches": launches,
               "ff_launches_by_field": ff_by_field, "all_kernels_launched": all_launched,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-        for name in [k for k, v in self.kernels.items() if not v["launches"] and k not in needed]:
-            del self.kernels[name]  # a K1 build the main path does not run
         return bool(ok) and rejected and value_ok and all_launched
+
+    # -- phase 5 ----------------------------------------------------------
+    def ntt_path(self):
+        """A 2^22-point NTT and iNTT (K4b + K4c) and a 2^9-point pair (K4a)
+        over BN254 Fr, then the checks and times outside the counted run."""
+        from poly_commit_tpu_torch.core import ff, ntt_lf
+        from poly_commit_tpu_torch.core import field_params as FP
+        from poly_commit_tpu_torch.core import ntt as NTT
+
+        spec = FP.FR_BN254
+        p = spec.modulus
+        big, small = self.rand_field(spec, 1 << NTT_LOG_N), self.rand_field(spec, 1 << 9)
+        self.reset_counts()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = {}
+        for name, a in (("big", big), ("small", small)):
+            ev = ntt_lf.ntt(spec, a)
+            outs[name] = (ev, ntt_lf.intt(spec, ev))
+        self.torch.cuda.synchronize()
+        path_ms = (time.perf_counter() - t0) * 1e3
+        launches, by_field = self.read_counts()
+        needed = list(self.NTT_KERNELS) + ["ff_mont_mul[fr_bn254]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+
+        checks = {}
+        for name, a in (("big", big), ("small", small)):
+            ev, back = outs[name]
+            n = a.shape[1]
+            portable = NTT.ntt(spec, ff.to_field_last(a, (n,)))
+            checks[f"{name}_round_trip"] = self.canon_err(spec, back, a) == 0
+            checks[f"{name}_equals_portable"] = self.canon_err(spec, ev, ff.from_field_last(portable)) == 0
+            # four evaluations against host Horner
+            coeffs = ff.to_ints(spec, a)
+            w = NTT.domain(spec, n.bit_length() - 1)["omega"]
+            idx = (0, 1, n // 2, n - 1)
+            want = []
+            for i in idx:
+                x, acc = pow(w, i, p), 0
+                for c in reversed(coeffs):
+                    acc = (acc * x + c) % p
+                want.append(acc)
+            got = ff.to_ints(spec, ev[:, list(idx)].contiguous())
+            checks[f"{name}_horner"] = got == want
+        n = 1 << NTT_LOG_N
+        ms = time_ms(lambda: ntt_lf.ntt(spec, big), 10)
+        intt_ms = time_ms(lambda: ntt_lf.intt(spec, big), 10)
+        portable_ms = time_ms(lambda: NTT.ntt(spec, ff.to_field_last(big, (n,))), 1)
+        # the transform reads and writes each element once and does one
+        # product per butterfly: log2 n stages of n/2
+        t_bytes = 2 * n * spec.n_limbs * 4 / HBM_BYTES_PER_S * 1e3
+        t_ops = NTT_LOG_N * (n // 2) * IMAD_PER_PRODUCT / self.imad_per_s * 1e3
+        emit({"phase": "ntt", "field": spec.name, "log_n": NTT_LOG_N, "path_ms": path_ms,
+              "checks": checks, "ms": ms, "intt_ms": intt_ms, "portable_ms": portable_ms,
+              "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "packed_bound_ms": max(t_bytes / 2, t_ops), "launches": launches,
+              "ff_launches_by_field": by_field, "all_kernels_launched": all_launched})
+        return all(checks.values()) and all_launched
+
+    # -- phase 6 ----------------------------------------------------------
+    def ligero_path(self, which):
+        """MultilinearLigeroBN254 at 2^22 evaluations ("ml") or
+        UnivariateLigero over BLS12-381 Fr at degree 2^20 - 1 ("uni")."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import linear_codes as LC
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+        from poly_commit_tpu_torch.pcs.linear_codes import engine
+        from poly_commit_tpu_torch.utils.merkle import MerkleTree, blake2s_hash
+
+        torch = self.torch
+        ml = which == "ml"
+        PC = LC.MultilinearLigeroBN254 if ml else LC.UnivariateLigero
+        spec = PC.spec
+        p = spec.modulus
+        size = 1 << (LIGERO_NUM_VARS if ml else LOG_DEGREE)
+        table = self.rand_field(spec, size).T.contiguous()  # (size, L) Montgomery
+        rng = HostRng(3)
+        stages = {}
+
+        def stage(name, fn, into=stages):
+            return timed(into, name, fn)
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        if ml:
+            pp = stage("setup", lambda: PC.setup(0, num_vars=LIGERO_NUM_VARS, rng=rng, device=self.dev))
+            lp = LabeledPolynomial("p", table, num_vars=LIGERO_NUM_VARS)
+            point = tuple(rng.field_int(spec) for _ in range(LIGERO_NUM_VARS))
+        else:
+            pp = stage("setup", lambda: PC.setup(size - 1, rng=rng, device=self.dev))
+            lp = LabeledPolynomial("p", table)
+            point = rng.field_int(spec)
+        ck, vk = stage("trim", lambda: PC.trim(pp, 0 if ml else size - 1))
+        comms, states = stage("commit", lambda: PC.commit(ck, [lp], rng))
+        query_set = {("p", ("z", point))}
+        proofs, values = stage("open", lambda: PC.batch_open(
+            ck, [lp], comms, query_set, PoseidonSponge(spec), states, rng))
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        key = next(iter(values))
+        bad = {key: (values[key] + 1) % p}
+        rejected = not stage("check_tampered", lambda: PC.batch_check(
+            vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field = self.read_counts()
+        needed = ["ntt_fused_stages", "ntt_stage"] + list(self.LIGERO_FF[which])
+        all_launched = self.all_launched(launches, by_field, needed)
+
+        # commit's parts, timed apart on the same matrix: the encode on the
+        # card; the column bytes (transpose, out of Montgomery form, copy to
+        # the host); Blake2s of each column; the Merkle tree
+        md = comms[0].commitment.metadata
+        mat = states[0].mat
+        split = {}
+        ext = stage("encode", lambda: PC.code.encode_rows(mat, ck), split)
+        raw = stage("column_bytes", lambda: engine.column_bytes(spec, ext), split)
+        leaves = stage("blake2s", lambda: [blake2s_hash(c.tobytes()) for c in raw], split)
+        root = stage("merkle", lambda: MerkleTree(leaves, ck.merkle_config()).root, split)
+
+        # the opened value against a host evaluation of the same ints
+        ints = F.to_ints(spec, table)
+        if ml:
+            for z in point:
+                ints = [(a + z * (b - a)) % p for a, b in zip(ints[0::2], ints[1::2])]
+            want = ints[0]
+        else:
+            want = 0
+            for c in reversed(ints):
+                want = (want * point + c) % p
+        value_ok = values[key] == want
+        emit({"phase": "ligero", "scheme": f"{PC.__name__}",
+              **({"num_vars": LIGERO_NUM_VARS} if ml else {"degree": size - 1}),
+              "rows": md.n_rows, "cols": md.n_cols, "ext_cols": md.n_ext_cols,
+              "queried_columns": len(proofs[0][0].opening.columns),
+              "stage_ms": stages, "commit_split_ms": split, "root_matches": root == comms[0].commitment.root,
+              "check": bool(ok), "tampered_rejected": rejected, "value_matches_host": value_ok,
+              "launches": launches, "ff_launches_by_field": by_field,
+              "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
+        return bool(ok) and rejected and value_ok and all_launched and root == comms[0].commitment.root
 
 
 def main() -> int:
@@ -410,7 +666,10 @@ def main() -> int:
     try:
         name_power = smoke.environment()
         results = {"ff": smoke.check_ff(), "ec": smoke.check_ec(), "sort": smoke.check_sort(),
-                   "msm": smoke.check_msm(), "main_path": smoke.main_path()}
+                   "ntt_kernels": smoke.check_ntt_kernels(), "msm": smoke.check_msm(),
+                   "main_path": smoke.main_path(), "ntt": smoke.ntt_path(),
+                   "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni")}
+        results["kernel_table"] = smoke.finish_table()
     except Exception:  # a failing phase: report it and exit non-zero
         traceback.print_exc()
         return 1

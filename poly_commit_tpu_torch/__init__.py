@@ -11,10 +11,14 @@ The package imports neither JAX nor anything of ``poly_commit_tpu``; the
 host modules it needs (field parameters, host curve groups, pairing
 engines, errors) are its own copies.
 
-Ported so far (the MarlinKZG10 main path, see ROADMAP.md):
+Ported so far (see ROADMAP.md):
   pcs.kzg10, pcs.marlin_pc  — MarlinKZG10 over BLS12-381 and BLS12-377
+  pcs.linear_codes          — Ligero, univariate and multilinear, over the
+                              BLS12-381 and BN254 scalar fields
   core.msm_gpu              — Pippenger MSM and fixed-base multiplication
-  core.ff / core.ec_lf / core.sort_gpu — the kernels K1, K2a and K3
+  core.ntt / core.ntt_lf    — the radix-2 NTT, portable and limbs-first
+  core.ff / core.ec_lf / core.sort_gpu / core.ntt_lf — the kernels K1, K2a,
+                              K3 and K4a/K4b/K4c
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
-"""Dense univariate polynomial operations on the MarlinKZG10 path.
+"""Dense univariate and multilinear polynomial operations.
 
-Counterpart of the main-path part of poly_commit_tpu/core/poly.py.
-Coefficient arrays are (D, L) int32 Montgomery limbs, ascending degree.
+Counterpart of the parts of poly_commit_tpu/core/poly.py that MarlinKZG10
+and Ligero use. Coefficient arrays are (D, L) int32 Montgomery limbs,
+ascending degree; multilinear evaluation tables are (2^nv, L) with
+variable 1 in the least significant index bit (arkworks order).
 The two sequential scans of the JAX version (Horner ``evaluate`` and the
 Ruffini loop) would be D eager steps here, so ``evaluate`` and
 ``divide_by_linear_int`` are log-depth: power tables by doubling, one
@@ -27,6 +29,38 @@ def powers(spec: FieldSpec, x: torch.Tensor, n: int) -> torch.Tensor:
         cur = F.mont_sqr(spec, cur)
         k *= 2
     return out[:n]
+
+
+def mle_fold(spec: FieldSpec, table: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Fix the lowest-index variable to z: out[b] = (1 - z) t[2b] + z t[2b+1]."""
+    t = table.reshape(table.shape[:-2] + (table.shape[-2] // 2, 2, table.shape[-1]))
+    even, odd = t[..., 0, :], t[..., 1, :]
+    return F.add(spec, even, F.mont_mul(spec, F.sub(spec, odd, even), z))
+
+
+def mle_evaluate(spec: FieldSpec, table: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """The multilinear extension of table (2^nv, L) at point (nv, L)."""
+    for i in range(point.shape[0]):
+        table = mle_fold(spec, table, point[i])
+    return table[..., 0, :]
+
+
+def eq_table(spec: FieldSpec, point: torch.Tensor) -> torch.Tensor:
+    """eq(point, b) over the boolean hypercube, (nv, L) -> (2^nv, L):
+    out[b] = prod_i ((1 - z_i)(1 - b_i) + z_i b_i), variable i at index
+    bit i (LSB first, arkworks order)."""
+    one = F.one_mont(spec, (), point.device)
+    t = one.unsqueeze(0)
+    for i in range(point.shape[0]):
+        z = point[i]
+        # variable i's bit is the most significant index bit built so far
+        t = torch.cat([F.mont_mul(spec, t, F.sub(spec, one, z)), F.mont_mul(spec, t, z)], 0)
+    return t
+
+
+def tensor_lsb(spec: FieldSpec, point: torch.Tensor) -> torch.Tensor:
+    """(1 - z_i, z_i) tensor with variable i at index bit i (= eq_table)."""
+    return eq_table(spec, point)
 
 
 def _tree_sum(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:

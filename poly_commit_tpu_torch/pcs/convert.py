@@ -1,4 +1,4 @@
-"""State carried across from the JAX package: structured reference strings.
+"""State carried across from the JAX package.
 
 ``params_from_jax`` takes the fields of a poly_commit_tpu
 ``kzg10.UniversalParams`` as numpy arrays (the caller runs ``np.asarray`` on
@@ -7,6 +7,10 @@ port's ``UniversalParams``. Both packages keep G1 coordinates as 16-bit
 Montgomery limbs with the same R, so the G1 powers carry over bit for bit;
 the G2 points h and beta_h become host int triples. With it, both packages
 commit against the very same SRS.
+
+``ligero_params_from_jax`` and ``lincode_state_from_jax`` carry Ligero
+parameters and a commitment's prover state across (read by attribute), so
+the port can open what the JAX package committed.
 """
 
 from __future__ import annotations
@@ -16,8 +20,11 @@ import torch
 
 from .. import device as D
 from ..core import ff
+from ..core import field_params as FP
 from . import kzg10
 from .curve_ctx import CTX_BLS12_381, CurveCtx
+from .linear_codes.engine import LinCodePCCommitmentState
+from .linear_codes.ligero import LigeroPCParams
 
 
 def _g1(t, device):
@@ -47,3 +54,29 @@ def params_from_jax(d: dict, ctx: CurveCtx = CTX_BLS12_381, device=None) -> kzg1
         beta_h=_g2(d["beta_h"], ctx),
         max_degree=int(d["max_degree"]),
     )
+
+
+_SPECS = {s.name: s for s in (FP.FR_BLS12_381, FP.FR_BN254)}  # Ligero's fields
+
+
+def ligero_params_from_jax(p, device=None) -> LigeroPCParams:
+    """A JAX ``LigeroPCParams`` (read by attribute) -> the port's, whose
+    ``check`` re-encodes on ``device``. The field spec is matched by name."""
+    return LigeroPCParams(spec=_SPECS[p.spec.name], sec_param=int(p.sec_param),
+                          rho_inv=int(p.rho_inv),
+                          check_well_formedness=bool(p.check_well_formedness),
+                          device=None if device is None else str(device))
+
+
+def lincode_state_from_jax(st, device=None) -> LinCodePCCommitmentState:
+    """A JAX ``LinCodePCCommitmentState`` -> the port's on ``device``: its
+    ``mat`` and ``ext_mat`` (uint32 Montgomery limbs, field-last, any
+    array that numpy reads) become int32 tensors with the same limbs, and
+    the column hashes carry over."""
+    dev = D.resolve(device)
+
+    def limbs(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
+
+    return LinCodePCCommitmentState(mat=limbs(st.mat), ext_mat=limbs(st.ext_mat),
+                                    leaves=[bytes(leaf) for leaf in st.leaves])

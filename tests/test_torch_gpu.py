@@ -17,8 +17,10 @@ torch = pytest.importorskip("torch")
 # and torch threads spinning beside them slow every worker many times over
 torch.set_num_threads(1)
 
-from poly_commit_tpu_torch.core import curve, ec_lf, ff, hostec, msm, sort_gpu  # noqa: E402
+from poly_commit_tpu_torch.core import curve, ec_lf, ff, hostec, msm, ntt_lf, sort_gpu  # noqa: E402
+from poly_commit_tpu_torch.core import field as F  # noqa: E402
 from poly_commit_tpu_torch.core import field_params as FP  # noqa: E402
+from poly_commit_tpu_torch.core import ntt as NTT  # noqa: E402
 
 FORMULAS = ["madd", "madd_distinct", "madd_packed", "madd_distinct_packed", "add", "double"]
 SENTINEL = 1 << 16
@@ -111,3 +113,48 @@ def test_msm_on_card_matches_host(cuda, distinct, n):
                   curve.affine_from_ints(group, [(x, y, False) for x, y in pts], cuda),
                   assume_distinct=distinct)
     assert hostec.device_proj_to_host(group, out) == hostec.host_group(group).msm_fast(scal, pts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FR_BN254, FP.FR_BLS12_381], ids=lambda s: s.name)
+@pytest.mark.parametrize("kernel", ["butterfly", "fused_stages", "stage"])
+def test_ntt_kernel_matches_plain(cuda, spec, kernel):
+    """K4a on 2^13 pairs; K4b and K4c on 8 rows of 2^13 (2^16 elements),
+    K4c at the first stage past the block and at the last; inputs < 2p."""
+    tws = NTT.stage_twiddles(spec, 13, False, cuda)
+    if kernel == "butterfly":
+        args = [_field(spec, 1 << 13, seed).to(cuda) for seed in (7, 8, 9)]
+        got, want = ntt_lf.butterfly(spec, *args), ntt_lf.butterfly_plain(spec, *args)
+    else:
+        a = _field(spec, 1 << 16, 10).to(cuda)
+        if kernel == "fused_stages":
+            table = ntt_lf.fused_table(tws, 11)
+            got = [ntt_lf.fused_stages(spec, a, table, 11, 1 << 11)]
+            want = [ntt_lf.fused_stages_plain(spec, a, table, 11, 1 << 11)]
+        else:
+            got = [ntt_lf.stage(spec, a, tws[s], s) for s in (11, 12)]
+            want = [ntt_lf.stage_plain(spec, a, tws[s], s) for s in (11, 12)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(ff.canonicalize(spec, g), ff.canonicalize(spec, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FR_BN254, FP.FR_BLS12_381], ids=lambda s: s.name)
+@pytest.mark.parametrize("log_n,rows", [(10, 4), (14, 2), (8, 2)],
+                         ids=["k4b_all_stages", "k4b_k4c", "k4a"])
+def test_ntt_round_trip_on_card(cuda, spec, log_n, rows):
+    """ntt_lf on the card equals the portable field-last route, and intt
+    brings the input back."""
+    a = ff.canonicalize(spec, _field(spec, rows << log_n, 11).to(cuda))
+    before = [w.launches for w in ntt_lf.WRAPPERS]
+    ev = ntt_lf.ntt(spec, a, rows=rows)
+    back = ntt_lf.intt(spec, ev, rows=rows)
+    torch.cuda.synchronize()
+    ran = [w.launches - b for w, b in zip(ntt_lf.WRAPPERS, before)]  # butterfly, fused, stage
+    assert (ran[0] > 0) == (rows << log_n < ntt_lf.FUSED_MIN_TOTAL)
+    assert (ran[2] > 0) == (log_n > 11)
+    assert torch.equal(ff.canonicalize(spec, back), a)
+    portable = NTT.ntt(spec, ff.to_field_last(a, (rows, 1 << log_n)))
+    assert torch.equal(ff.canonicalize(spec, ev), ff.from_field_last(portable))
+
