@@ -26,8 +26,19 @@ Phases, one JSON line each (times in ms):
   6. ligero: MultilinearLigero over BN254 Fr at 22 variables, then
      UnivariateLigero over BLS12-381 Fr at degree 2^20 - 1, setup -> commit
      -> batch_open -> batch_check, the value against a host evaluation, a
-     tampered value rejected, the launches; then commit's parts timed apart.
-Phases 4-6 are the paths: each runs with every launch count set to 0 just
+     tampered value rejected, the launches; then commit's parts timed apart;
+  7. multilinear_pc: MultilinearPC over BLS12-381 at 20 variables, setup ->
+     trim -> commit -> open -> check, the value against the host MLE fold, a
+     tampered value rejected, check's multi-pairing timed apart;
+  8. ipa: InnerProductArgPC over JubJub at degree 2^16 - 1, one hiding
+     polynomial, hash-to-curve -> setup -> trim -> commit -> batch_open ->
+     batch_check, the value against host Horner, a tampered value rejected;
+     then open again with its MSMs, their host window folds and the key
+     folds timed apart.
+Phase 2 also holds K2c (the six G2 formulas on the BLS12-381 and BLS12-377
+Fq2) and K2b (the four JubJub formulas) against their plain versions, and
+phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
+Phases 4-8 are the paths: each runs with every launch count set to 0 just
 before it and read just after; the kernel table sums them.
 Then the kernel table, the nvidia-smi line, and {"ok": true, "device": ...}.
 Any failure exits non-zero; so does a machine without a CUDA device.
@@ -35,6 +46,7 @@ Any failure exits non-zero; so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -47,7 +59,11 @@ SENTINEL = 1 << 16
 LOG_DEGREE = 20  # the main path's degree is 2^20 - 1
 LIGERO_NUM_VARS = 22  # the top of the reference's Ligero bench (ligero_ml_times.rs)
 NTT_LOG_N = 22
+MLPC_NUM_VARS = 20  # MultilinearPC at 2^20 evaluations, the main path's scale
+IPA_LOG_DEGREE = 16  # IPA-PC at degree 2^16 - 1: host hash-to-curve bounds setup
+SIDE_MSM_LOG_N = 10  # the G2 and JubJub MSMs of phase 3 (host oracle cost)
 IMAD_PER_PRODUCT = 4 * 8 * 8 + 8  # CIOS on 8 32-bit words
+IMAD_PER_FQ_PRODUCT = 4 * 12 * 12 + 12  # CIOS on 12 32-bit words
 
 
 def emit(obj):
@@ -87,6 +103,36 @@ def timed(into, name, fn):
     return out
 
 
+@contextlib.contextmanager
+def spans(targets):
+    """Within the block, each ``(module, attribute)`` function is wrapped so
+    that its calls' host wall ms (between two synchronizes) and count add up
+    in the yielded dict under the attribute's name."""
+    import torch
+
+    out = {}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in targets]
+
+    def wrap(attr, fn):
+        def timed_call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms, calls = out.get(attr, (0.0, 0))
+            out[attr] = (ms + (time.perf_counter() - t0) * 1e3, calls + 1)
+            return res
+        return timed_call
+
+    for mod, attr, fn in saved:
+        setattr(mod, attr, wrap(attr, fn))
+    try:
+        yield out
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
 class Smoke:
     # K1 builds the main path runs: the base field's mul (normalisation) and
     # sub (point negation), the scalar field's mul and add (from_mont,
@@ -116,17 +162,21 @@ class Smoke:
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
         self.wrappers = {
             **{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
-            **{f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS},
+            **{f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS + ec_lf.G2_WRAPPERS + ec_lf.ED_WRAPPERS},
             "digit_sort": sort_gpu.digit_sort,
             **{f"ntt_{w.__name__}": w for w in ntt_lf.WRAPPERS},
         }
         ntt_src = "poly_commit_tpu_torch/csrc/ntt.cu"
         self.sources = {"ff": "poly_commit_tpu_torch/csrc/ff.cu",
                         "ec": "poly_commit_tpu_torch/csrc/ec_g1.cu",
+                        "g2": "poly_commit_tpu_torch/csrc/ec_g2.cu",
+                        "ed": "poly_commit_tpu_torch/csrc/ec_ed.cu",
                         "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu",
                         "k4a": ntt_src, "k4b": ntt_src, "k4c": ntt_src}
         self.replaces = {"ff": "poly_commit_tpu/core/ff.py:293",
                          "ec": "poly_commit_tpu/core/ec_lf.py:455",
+                         "g2": "poly_commit_tpu/core/ec_lf.py:455",
+                         "ed": "poly_commit_tpu/core/ec_lf.py:455",
                          "digit": "poly_commit_tpu/core/sort_tpu.py:141",
                          "k4a": "poly_commit_tpu/core/ntt_lf.py:48",
                          "k4b": "poly_commit_tpu/core/ntt_lf.py:93",
@@ -173,8 +223,14 @@ class Smoke:
         t[-1] = torch.randint(0, top, (n,), generator=self.gen, device=self.dev, dtype=torch.int32)
         return t
 
-    def entry(self, name, kind, max_abs_err, ms, plain_ms, n_bytes, n_imad, library_ms=None):
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    def entry(self, name, kind, max_abs_err, ms, plain_ms, n_bytes, n_imad, library_ms=None,
+              limbs=True):
+        """A kernel-table entry. ``n_bytes`` counts the int32-per-16-bit-limb
+        layout the kernels take; for limb data (``limbs``) the bound moves
+        2 bytes a limb, the least a field element needs. Returns the line's
+        bound keys: the bound, and the layout's bound beside it."""
+        t_layout = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = t_layout / 2 if limbs else t_layout
         t_ops = n_imad / self.imad_per_s * 1e3
         self.kernels[name] = {
             "name": name, "route": "cuda", "source": self.sources[kind],
@@ -182,6 +238,7 @@ class Smoke:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
         }
+        return {"bound_ms": max(t_bytes, t_ops), "layout_bound_ms": max(t_layout, t_ops)}
 
     def canon_err(self, spec, a, b):
         """max |difference| of the canonical limbs of two (L, N) tensors."""
@@ -189,6 +246,18 @@ class Smoke:
 
         d = ff.canonicalize(spec, a).long() - ff.canonicalize(spec, b).long()
         return int(d.abs().max()) if d.numel() else 0
+
+    def lazy(self, spec, n):
+        """(L, n) random limbs in the lazy range [0, 2p)."""
+        from poly_commit_tpu_torch.core import ff
+
+        return ff.plain("add", spec, self.rand_field(spec, n), self.rand_field(spec, n))
+
+    def bound(self, n_bytes, n_imad):
+        """entry()'s bound keys, for a kernel without a table entry."""
+        t_layout = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_imad / self.imad_per_s * 1e3
+        return {"bound_ms": max(t_layout / 2, t_ops), "layout_bound_ms": max(t_layout, t_ops)}
 
     # -- phase 1 ----------------------------------------------------------
     def environment(self):
@@ -214,9 +283,9 @@ class Smoke:
         ok = True
         # the main path's shape: 2^20 lanes of the scalar field (the prover's
         # polynomial work) and of the base field (the SRS normalisation);
-        # BN254's scalar field is Ligero's. BLS12-377's base field runs the
-        # same 12-word build as BLS12-381's.
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FQ_BLS12_377):
+        # BN254's scalar field is Ligero's, JubJub's IPA-PC's. BLS12-377's
+        # base field runs the same 12-word build as BLS12-381's.
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FR_JUBJUB, FP.FQ_BLS12_377):
             n = 1 << 20
             a, b = self.rand_field(spec, n), self.rand_field(spec, n)
             a = ff.plain("add", spec, a, b)  # values up to 2p: the lazy range
@@ -228,8 +297,7 @@ class Smoke:
                 nw = spec.n_limbs // 2
                 ms = time_ms(lambda: fn(spec, a, b), 20)
                 plain_ms = time_ms(lambda: ff.plain(op, spec, a, b), 1)
-                # two operands read, one written, as int32 per 16-bit limb: the
-                # boundary layout; a packed layout would move half the bytes
+                # two operands read, one written, as int32 per 16-bit limb
                 n_bytes = 3 * spec.n_limbs * 4 * n
                 n_imad = (4 * nw * nw + nw) * n if op == "mul" else 0
                 name = f"ff_{fn.__name__}[{spec.name}]"
@@ -238,9 +306,7 @@ class Smoke:
                 if spec is FP.FQ_BLS12_377:  # not on the main path: no table entry
                     emit(line)
                     continue
-                self.entry(name, "ff", err, ms, plain_ms, n_bytes, n_imad)
-                packed_ms = max(n_bytes / 2 / HBM_BYTES_PER_S, n_imad / self.imad_per_s) * 1e3
-                emit({**line, "bound_ms": self.kernels[name]["bound_ms"], "packed_bound_ms": packed_ms})
+                emit({**line, **self.entry(name, "ff", err, ms, plain_ms, n_bytes, n_imad)})
         return ok
 
     def host_points(self, group, n, seed):
@@ -324,9 +390,127 @@ class Smoke:
             finite = n - 1
             muls = field_muls[which] * finite + (7 if which in ("madd", "madd_packed", "add") else 0)
             n_bytes = (in_coords[which] + 3) * spec.n_limbs * 4 * n
-            self.entry(f"ec_{which}", "ec", err, ms, plain_ms, n_bytes, muls * (4 * nw * nw + nw))
+            bounds = self.entry(f"ec_{which}", "ec", err, ms, plain_ms, n_bytes, muls * (4 * nw * nw + nw))
             emit({"phase": "kernels", "kernel": f"ec_{which}", "n": n, "max_abs_err": err, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": self.kernels[f"ec_{which}"]["bound_ms"]})
+                  "plain_ms": plain_ms, **bounds})
+        return ok
+
+    # the K2c and K2b formulas that no path launches (every MSM of the paths
+    # assumes distinct bases; no Edwards fixed-base): held against their
+    # plain versions here, without a kernel-table entry
+    OFF_PATH = ("ec_g2_madd_packed", "ec_ed_madd")
+    CURVE_KERNEL_N = 1 << 16  # the MSM scan's width: 16 windows x 4096 lanes
+    IN_COORDS = {"madd": 5, "madd_distinct": 5, "madd_packed": 4, "madd_distinct_packed": 4,
+                 "add": 6, "double": 3}
+
+    def check_g2(self):
+        """K2c: the six G2 formulas against their plain versions, bit for bit
+        on the raw limbs, at the MSM scan's width (2^16 points), on the
+        BLS12-381 Fq2 (timed: MultilinearPC's) and the BLS12-377 Fq2. Lanes
+        0..3 are the edges: P at infinity, P == Q, P == -Q (z = 1), Q at
+        infinity (add)."""
+        from poly_commit_tpu_torch.core import ec_lf, ff
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        torch = self.torch
+        n = self.CURVE_KERNEL_N
+        errs = {}
+        for spec in (FP.FQ_BLS12_381, FP.FQ_BLS12_377):
+            L = spec.n_limbs
+            x1, y1, z1, x2, y2, z2 = (torch.cat([self.lazy(spec, n), self.lazy(spec, n)], 0)
+                                      for _ in range(6))
+            one = ec_lf.fq2_one(spec, 1, self.dev)
+            z1[:, 0] = 0
+            z2[:, 3] = 0
+            z1[:, 1:3], z2[:, 1:3] = one, one
+            x2[:, 1:3] = x1[:, 1:3]
+            y2[:, 1] = y1[:, 1]
+            zero = torch.zeros_like(y1[:L, 2:3])
+            y2[:, 2:3] = torch.cat([ff.plain("sub", spec, zero, y1[:L, 2:3].contiguous()),
+                                    ff.plain("sub", spec, zero, y1[L:, 2:3].contiguous())], 0)
+            P, Q = (x1, y1, z1), (x2, y2, z2)
+            pq = ec_lf.pack(x2, y2)
+            args = {"madd": (x2, y2), "madd_distinct": (x2, y2), "madd_packed": (pq,),
+                    "madd_distinct_packed": (pq,), "add": (Q,), "double": ()}
+            # base products: an Fq2 product is 3 (Karatsuba), a square 2
+            # when nr = -1 ((a0 + a1)(a0 - a1), a0 a1), else 3
+            mul, sqr = 3, 2 if ec_lf.QUAD_NR[spec.name] == -1 else 3
+            products = {"madd": 7 * mul + 4 * sqr, "add": 11 * mul + 5 * sqr,
+                        "double": 2 * mul + 5 * sqr}
+            for fn in ec_lf.G2_WRAPPERS:
+                which = fn.__name__
+                base = which[3:]
+                a = args[base]
+                flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
+                got = fn(spec, P, *a)
+                want = ec_lf.plain(which, spec, *P, *flat)
+                err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+                name = f"ec_{which}"
+                errs[name] = max(errs.get(name, 0), err)
+                line = {"phase": "kernels", "kernel": name, "field": spec.name, "n": n,
+                        "max_abs_err": err}
+                if spec is not FP.FQ_BLS12_381:
+                    emit(line)
+                    continue
+                ms = time_ms(lambda: fn(spec, P, *a), 20)
+                plain_ms = time_ms(lambda: ec_lf.plain(which, spec, *P, *flat), 1)
+                # the main formula on every lane with a finite P, plus the
+                # doubling where P == Q in the complete forms
+                complete = base in ("madd", "madd_packed", "add")
+                n_prod = (products[base.replace("_distinct", "").replace("_packed", "")] * (n - 1)
+                          + (products["double"] if complete else 0))
+                n_bytes = (self.IN_COORDS[base] + 3) * 2 * L * 4 * n
+                n_imad = n_prod * IMAD_PER_FQ_PRODUCT
+                if name not in self.OFF_PATH:
+                    self.entry(name, "g2", err, ms, plain_ms, n_bytes, n_imad)
+                emit({**line, "ms": ms, "plain_ms": plain_ms, **self.bound(n_bytes, n_imad)})
+            del x1, y1, z1, x2, y2, z2, P, Q, pq, args
+        for name, err in errs.items():
+            if name in self.kernels:
+                self.kernels[name]["max_abs_err"] = err  # over both fields
+        return all(e == 0 for e in errs.values())
+
+    def check_ed(self):
+        """K2b: the four JubJub formulas against their plain versions, bit
+        for bit on the raw limbs, at 2^16 points of Fr-381 (post-reduce).
+        Lane 0 of P and lane 1 of Q are the identity; lane 2 adds P to -P."""
+        from poly_commit_tpu_torch.core import ec_lf
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        spec = FP.JUBJUB_FQ
+        n = self.CURVE_KERNEL_N
+        P = [self.lazy(spec, n) for _ in range(4)]
+        Q = [self.lazy(spec, n) for _ in range(4)]
+        ident = ec_lf.ed_infinity(spec, 1, self.dev)
+        neg = ec_lf.ed_neg(spec, tuple(t[:, 2:3].contiguous() for t in P))
+        for k in range(4):
+            P[k][:, 0] = ident[k][:, 0]
+            Q[k][:, 1] = ident[k][:, 0]
+            Q[k][:, 2] = neg[k][:, 0]
+        P, Q = tuple(P), tuple(Q)
+        args = {"ed_madd": Q[:2], "ed_madd_packed": (ec_lf.pack(Q[0], Q[1]),), "ed_add": (Q,),
+                "ed_double": ()}
+        in_coords = {"ed_madd": 6, "ed_madd_packed": 5, "ed_add": 8, "ed_double": 4}
+        ok = True
+        for fn in ec_lf.ED_WRAPPERS:
+            which = fn.__name__
+            a = args[which]
+            flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
+            got = fn(spec, P, *a)
+            want = ec_lf.plain(which, spec, *P, *flat)
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            ok &= err == 0
+            ms = time_ms(lambda: fn(spec, P, *a), 20)
+            plain_ms = time_ms(lambda: ec_lf.plain(which, spec, *P, *flat), 1)
+            # 9 products a point (add-2008-hwcd-3 with the 2d product; the
+            # mixed forms compute t2 = x2 y2 instead of z1 z2), no branches
+            n_bytes = (in_coords[which] + 4) * spec.n_limbs * 4 * n
+            n_imad = 9 * n * IMAD_PER_PRODUCT
+            name = f"ec_{which}"
+            if name not in self.OFF_PATH:
+                self.entry(name, "ed", err, ms, plain_ms, n_bytes, n_imad)
+            emit({"phase": "kernels", "kernel": name, "field": spec.name, "n": n, "max_abs_err": err,
+                  "ms": ms, "plain_ms": plain_ms, **self.bound(n_bytes, n_imad)})
         return ok
 
     def check_sort(self):
@@ -349,10 +533,10 @@ class Smoke:
         plain_ms = time_ms(lambda: sort_gpu.plain(keys, SENTINEL), 1)
         library_ms = time_ms(lambda: torch.sort(keys, dim=1), 10)
         n_bytes = 3 * w * n * 4 + w * (SENTINEL + 1) * 4
-        self.entry("digit_sort", "digit", err, ms, plain_ms, n_bytes, 0, library_ms)
+        bounds = self.entry("digit_sort", "digit", err, ms, plain_ms, n_bytes, 0, library_ms, limbs=False)
         emit({"phase": "kernels", "kernel": "digit_sort", "shape": [w, n], "permutation": perm,
               "keys_match": gathered, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": self.kernels["digit_sort"]["bound_ms"]})
+              "library_ms": library_ms, "bound_ms": bounds["bound_ms"]})
         return ok
 
     def check_ntt_kernels(self):
@@ -407,10 +591,8 @@ class Smoke:
                     n_bytes = 2 * total * L4 + (1 << s_big) * L4
                     n_imad = (total // 2) * IMAD_PER_PRODUCT
                     shape = {"total": total, "stage": s_big}
-                self.entry(name, kind, None, ms, plain_ms, n_bytes, n_imad)
-                packed_ms = max(n_bytes / 2 / HBM_BYTES_PER_S, n_imad / self.imad_per_s) * 1e3
-                emit({**line, "kernel": name, **shape, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": self.kernels[name]["bound_ms"], "packed_bound_ms": packed_ms})
+                bounds = self.entry(name, kind, None, ms, plain_ms, n_bytes, n_imad)
+                emit({**line, "kernel": name, **shape, "ms": ms, "plain_ms": plain_ms, **bounds})
             del a, u, w, tw, runs
         for kind, name in zip(("k4a", "k4b", "k4c"), self.NTT_KERNELS):
             self.kernels[name]["max_abs_err"] = errs[kind]  # over both fields
@@ -439,9 +621,40 @@ class Smoke:
         emit({"phase": "msm", "n": n, "equal": got == want, "device_ms": ms, "host_oracle_ms": host_ms})
         return got == want
 
+    def check_side_msms(self):
+        """A G2 (BLS12-381) and a JubJub MSM of 2^10 points against the host
+        oracle, with the complete mixed add (g2_madd_packed, ed_madd_packed)."""
+        import random
+
+        from poly_commit_tpu_torch.core import curve, hostec, msm
+
+        n = 1 << SIDE_MSM_LOG_N
+        out = {}
+        for group in (curve.BLS12_381_G2, curve.JUBJUB):
+            hg = hostec.host_group(group)
+            rnd = random.Random(4)
+            gen = (group.gen_x, group.gen_y)
+            pts = [hg.mul_fast(gen, rnd.randrange(1, group.scalar_spec.modulus))]
+            step = hg.mul_fast(gen, rnd.randrange(1, group.scalar_spec.modulus))
+            for _ in range(n - 1):
+                pts.append(hg.add(pts[-1], step))
+            scal = [rnd.randrange(group.scalar_spec.modulus) for _ in range(n)]
+            t0 = time.perf_counter()
+            res = msm.msm(group, msm.scalars_from_ints(group.scalar_spec, scal, self.dev),
+                          curve.affine_from_ints(group, [(x, y, False) for x, y in pts], self.dev))
+            got = hostec.device_proj_to_host(group, res)
+            ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            want = hg.msm_fast(scal, pts)
+            out[group.name] = {"equal": got == want, "device_ms": ms,
+                               "host_oracle_ms": (time.perf_counter() - t0) * 1e3}
+        emit({"phase": "msm_g2_jubjub", "n": n, **out})
+        return all(v["equal"] for v in out.values())
+
     # -- phase 4 ----------------------------------------------------------
     def main_path(self):
         from poly_commit_tpu_torch.core import curve as C
+        from poly_commit_tpu_torch.core import ec_lf
         from poly_commit_tpu_torch.core import field as F
         from poly_commit_tpu_torch.core import msm as M
         from poly_commit_tpu_torch.core.serialize import device_point_to_ints
@@ -501,7 +714,7 @@ class Smoke:
         value_ok = values[("p", z)] == acc
         # every K2a formula and K3 ran, every K1 build of the main path ran,
         # and no K1 build ran that phase 2 did not hold against its plain version
-        needed = [k for k in launches if k.startswith(("ec_", "digit"))] + list(self.MAIN_PATH_FF)
+        needed = [f"ec_{w.__name__}" for w in ec_lf.WRAPPERS] + ["digit_sort"] + list(self.MAIN_PATH_FF)
         all_launched = self.all_launched(launches, ff_by_field, needed)
         emit({"phase": "main_path", "scheme": "MarlinKZG10/BLS12-381", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "check_split_ms": split, "check": bool(ok),
@@ -557,14 +770,12 @@ class Smoke:
         ms = time_ms(lambda: ntt_lf.ntt(spec, big), 10)
         intt_ms = time_ms(lambda: ntt_lf.intt(spec, big), 10)
         portable_ms = time_ms(lambda: NTT.ntt(spec, ff.to_field_last(big, (n,))), 1)
-        # the transform reads and writes each element once and does one
-        # product per butterfly: log2 n stages of n/2
-        t_bytes = 2 * n * spec.n_limbs * 4 / HBM_BYTES_PER_S * 1e3
-        t_ops = NTT_LOG_N * (n // 2) * IMAD_PER_PRODUCT / self.imad_per_s * 1e3
+        # the transform reads and writes each element once (2 bytes a limb)
+        # and does one product per butterfly: log2 n stages of n/2
+        bounds = self.bound(2 * n * spec.n_limbs * 4, NTT_LOG_N * (n // 2) * IMAD_PER_PRODUCT)
         emit({"phase": "ntt", "field": spec.name, "log_n": NTT_LOG_N, "path_ms": path_ms,
               "checks": checks, "ms": ms, "intt_ms": intt_ms, "portable_ms": portable_ms,
-              "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-              "packed_bound_ms": max(t_bytes / 2, t_ops), "launches": launches,
+              **bounds, "launches": launches,
               "ff_launches_by_field": by_field, "all_kernels_launched": all_launched})
         return all(checks.values()) and all_launched
 
@@ -650,6 +861,133 @@ class Smoke:
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and value_ok and all_launched and root == comms[0].commitment.root
 
+    # -- phase 7 ----------------------------------------------------------
+    def multilinear_path(self):
+        """MultilinearPC over BLS12-381 at MLPC_NUM_VARS variables."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core import msm as M
+        from poly_commit_tpu_torch.core import poly as P
+        from poly_commit_tpu_torch.pcs import kzg10
+        from poly_commit_tpu_torch.pcs import multilinear_pc as ML
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng
+
+        torch = self.torch
+        spec, p, nv = ML.SPEC, ML.SPEC.modulus, MLPC_NUM_VARS
+        table = self.rand_field(spec, 1 << nv).T.contiguous()  # (2^nv, L) Montgomery
+        rng = HostRng(5)
+        stages = {}
+
+        def stage(name, fn, into=stages):
+            return timed(into, name, fn)
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        pp = stage("setup", lambda: ML.setup(nv, rng, device=self.dev))
+        ck, vk = stage("trim", lambda: ML.trim(pp, nv))
+        comm = stage("commit", lambda: ML.commit(ck, table))
+        point = [rng.field_int(spec) for _ in range(nv)]
+        proof = stage("open", lambda: ML.open(ck, table, point))
+        # the value: the host MLE fold of the same ints
+        ints = F.to_ints(spec, table)
+        for z in point:
+            ints = [(a + z * (b - a)) % p for a, b in zip(ints[0::2], ints[1::2])]
+        value = ints[0]
+        ok = stage("check", lambda: ML.check(vk, comm, point, value, proof))
+        rejected = not stage("check_tampered", lambda: ML.check(vk, comm, point, (value + 1) % p, proof))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field = self.read_counts()
+
+        # check's parts apart: the host algebra, and the product of nv + 1
+        # pairings; and open's largest part, its first G2 MSM (2^nv points)
+        split = {}
+        g1s, g2s = stage("host_algebra", lambda: ML.pairing_inputs(vk, comm, point, value, proof), split)
+        stage("multi_pairing", lambda: kzg10.pairing_product_is_one_host(g1s, g2s), split)
+        open_split = {}
+        stage("first_g2_msm", lambda: M.msm_mont(ML.G2, table, ck.powers_of_h[0], assume_distinct=True),
+              open_split)
+        device_value = F.to_ints(spec, P.mle_evaluate(spec, table, F.from_ints(spec, point, device=self.dev)))
+        needed = [f"ec_{w}" for w in ("g2_madd", "g2_madd_distinct", "g2_madd_distinct_packed",
+                                      "g2_add", "g2_double", "madd_distinct_packed", "add")]
+        needed += ["digit_sort", "ff_mont_mul[fq_bls12_381]", "ff_mont_mul[fr_bls12_381]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        emit({"phase": "multilinear_pc", "scheme": "MultilinearPC/BLS12-381", "num_vars": nv,
+              "stage_ms": stages, "check_split_ms": split, "open_split_ms": open_split,
+              "check": bool(ok), "tampered_rejected": rejected,
+              "value_matches_host": device_value == value,
+              "launches": launches, "ff_launches_by_field": by_field,
+              "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
+        return bool(ok) and rejected and device_value == value and all_launched
+
+    # -- phase 8 ----------------------------------------------------------
+    def ipa_path(self):
+        """InnerProductArgPC over JubJub at degree 2^IPA_LOG_DEGREE - 1, one
+        hiding polynomial; setup's hash-to-curve is its own stage."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core import msm_gpu
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import ipa_pc
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+
+        torch = self.torch
+        PC = ipa_pc.InnerProductArgPC
+        spec, p = PC.spec, PC.spec.modulus
+        degree = (1 << IPA_LOG_DEGREE) - 1
+        coeffs = self.rand_field(spec, degree + 1).T.contiguous()  # (D+1, L) Montgomery
+        rng = HostRng(6)
+        stages = {}
+
+        def stage(name, fn, into=stages):
+            return timed(into, name, fn)
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # PC.setup is these two steps: the host hash-to-curve, then the key
+        # on the device
+        gens = stage("hash_to_curve", lambda: ipa_pc.sample_generators(degree + 3))
+        pp = stage("setup", lambda: ipa_pc.params_from_generators(gens, self.dev))
+        ck, vk = stage("trim", lambda: PC.trim(pp, degree, 1))
+        lp = LabeledPolynomial("p", coeffs, hiding_bound=1)
+        comms, states = stage("commit", lambda: PC.commit(ck, [lp], rng))
+        z = rng.field_int(spec)
+        query_set = {("p", ("z", z))}
+        proofs, values = stage("open", lambda: PC.batch_open(
+            ck, [lp], comms, query_set, PoseidonSponge(spec), states, rng))
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        bad = {k: (v + 1) % p for k, v in values.items()}
+        rejected = not stage("check_tampered", lambda: PC.batch_check(
+            vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field = self.read_counts()
+
+        # open again, its parts timed apart: every MSM (the hiding commit and
+        # two a round), within them the host window folds, and the key folds;
+        # the rest is host work (transcript, h' terms, conversions)
+        with spans([(ipa_pc.M, "msm_mont"), (msm_gpu, "_fold_host"), (ipa_pc, "fold_key")]) as parts:
+            open_ms = {}
+            stage("open", lambda: PC.batch_open(ck, [lp], comms, query_set, PoseidonSponge(spec),
+                                                states, HostRng(7)), open_ms)
+        open_split = {"total_ms": open_ms["open"],
+                      **{f"{k}_ms": ms for k, (ms, _) in parts.items()},
+                      **{f"{k}_calls": calls for k, (_, calls) in parts.items()}}
+        open_split["rest_ms"] = (open_ms["open"] - open_split["msm_mont_ms"]
+                                 - open_split["fold_key_ms"])
+
+        acc = 0
+        for c in reversed(F.to_ints(spec, coeffs)):
+            acc = (acc * z + c) % p
+        value_ok = values[("p", z)] == acc
+        needed = ["ec_ed_madd_packed", "ec_ed_add", "ec_ed_double", "digit_sort",
+                  "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_mont_mul[fr_bls12_381]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        emit({"phase": "ipa", "scheme": "InnerProductArgPC/JubJub", "degree": degree,
+              "hiding_bound": 1, "stage_ms": stages, "open_split_ms": open_split, "check": bool(ok),
+              "tampered_rejected": rejected,
+              "value_matches_host": value_ok, "rounds": len(proofs[0].l_vec), "launches": launches,
+              "ff_launches_by_field": by_field, "all_kernels_launched": all_launched,
+              "peak_mem_gb": peak_gb})
+        return bool(ok) and rejected and value_ok and all_launched
+
 
 def main() -> int:
     import torch
@@ -665,10 +1003,13 @@ def main() -> int:
     smoke = Smoke()
     try:
         name_power = smoke.environment()
-        results = {"ff": smoke.check_ff(), "ec": smoke.check_ec(), "sort": smoke.check_sort(),
+        results = {"ff": smoke.check_ff(), "ec": smoke.check_ec(), "g2": smoke.check_g2(),
+                   "ed": smoke.check_ed(), "sort": smoke.check_sort(),
                    "ntt_kernels": smoke.check_ntt_kernels(), "msm": smoke.check_msm(),
+                   "msm_g2_jubjub": smoke.check_side_msms(),
                    "main_path": smoke.main_path(), "ntt": smoke.ntt_path(),
-                   "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni")}
+                   "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni"),
+                   "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path()}
         results["kernel_table"] = smoke.finish_table()
     except Exception:  # a failing phase: report it and exit non-zero
         traceback.print_exc()

@@ -15,10 +15,15 @@ Ported so far (see ROADMAP.md):
   pcs.kzg10, pcs.marlin_pc  — MarlinKZG10 over BLS12-381 and BLS12-377
   pcs.linear_codes          — Ligero, univariate and multilinear, over the
                               BLS12-381 and BN254 scalar fields
-  core.msm_gpu              — Pippenger MSM and fixed-base multiplication
+  pcs.multilinear_pc        — MultilinearPC over BLS12-381 (G1 and G2)
+  pcs.ipa_pc                — InnerProductArgPC over JubJub
+  core.msm_gpu              — Pippenger MSM (G1, G2, JubJub) and fixed-base
+                              multiplication (G1, G2)
+  core.extfield             — Fq2 on the port's tensors
   core.ntt / core.ntt_lf    — the radix-2 NTT, portable and limbs-first
-  core.ff / core.ec_lf / core.sort_gpu / core.ntt_lf — the kernels K1, K2a,
-                              K3 and K4a/K4b/K4c
+  core.ff / core.ec_lf / core.sort_gpu / core.ntt_lf — the kernels K1, K2a
+                              (G1), K2c (G2), K2b (JubJub), K3 and
+                              K4a/K4b/K4c
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
-"""Limbs-first G1 Jacobian group operations: kernel K2a.
+"""Limbs-first group operations: kernels K2a (G1), K2c (G2) and K2b (JubJub).
 
-Counterpart of poly_commit_tpu/core/ec_lf.py for the short-Weierstrass G1
-curves (BLS12-381, BLS12-377, BN254; a = 0). Points are (x, y, z) tuples of
-(L, N) int32 limb tensors in Montgomery form, values < 2p; z == 0 mod p is
-infinity, and ``infinity`` writes it as (0, R mod p, 0).
+Counterpart of poly_commit_tpu/core/ec_lf.py. G1 points (BLS12-381,
+BLS12-377, BN254; a = 0) are (x, y, z) tuples of (L, N) int32 limb tensors
+in Montgomery form, values < 2p; z == 0 mod p is infinity, and ``infinity``
+writes it as (0, R mod p, 0). G2 points are the same over Fq2, each
+coordinate a (2L, N) stack of c0's limb rows over c1's. JubJub points are
+extended twisted Edwards (x, y, z, t) over Fr-381, identity (0, 1, 1, 0).
 
 K2a replaces the G1 entries of ``_ec_fn`` (poly_commit_tpu/core/ec_lf.py:455):
 ``madd`` / ``madd_distinct`` (madd-2007-bl, 7M+4S; the distinct form has no
@@ -18,6 +20,14 @@ What bounds it on the card: a madd reads 4 and writes 3 coordinates
 card's IMAD-to-bandwidth ratio: it is bound by integer multiplies, and the
 design spends nothing on memory beyond one read and one write per point.
 
+K2c (csrc/ec_g2.cu) replaces the ``g2_*`` entries: the same formulas
+(csrc/ec_jac.cuh is shared with K2a) over Fq2 = Fq[u]/(u^2 - nr), Karatsuba
+products and the non-residue nr = -k as an addition chain, as ``_fx_quad``
+does. K2b (csrc/ec_ed.cu) replaces the ``ed_*`` entries: add-2008-hwcd-3
+with a = -1, complete and branch-free, over Fr-381 (4p > R: every product
+takes the post-reduce); ``ed_double`` is ``ed_add(p, p)``, as in the JAX
+package, so both give the same coordinates.
+
 The plain versions below follow ec_lf.py's formulas on ff's plain field ops
 and run only for CPU tensors; each wrapper counts its kernel launches.
 """
@@ -25,15 +35,20 @@ and run only for CPU tensors; each wrapper counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import device as D
 from . import ff
+from . import field_params as FP
 from .field_params import FieldSpec
 
 _WHICH = {"madd": 0, "madd_distinct": 1, "madd_packed": 2,
           "madd_distinct_packed": 3, "add": 4, "double": 5}
+_ED_WHICH = {"ed_madd": 0, "ed_madd_packed": 1, "ed_add": 2, "ed_double": 3}
+# Fq2 = Fq[u]/(u^2 - nr) per base field (ark-ff Fp2Config NONRESIDUE)
+QUAD_NR = {"fq_bls12_381": -1, "fq_bls12_377": -5, "fq_bn254": -1}
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +80,65 @@ class _Fx:
 
     def one(self, like):
         return ff.consts(self.spec, like.device, 3).expand_as(like)
+
+
+def times_small(add, t, k: int):
+    """k t for a small static k > 0 by the addition chain of
+    ec_lf.py::_fx_quad's ``small`` (csrc/ec_g2.cu's too)."""
+    res, cur = None, t
+    while k:
+        if k & 1:
+            res = cur if res is None else add(res, cur)
+        k >>= 1
+        if k:
+            cur = add(cur, cur)
+    return res
+
+
+class _Fx2:
+    """Fq2 row ops on int64 (2L, N) tensors, c0 over c1: ec_lf.py::_fx_quad's
+    operation sequence, which csrc/ec_g2.cu follows too. Karatsuba products;
+    nr = -k enters as an addition chain; carries stay within a component."""
+
+    def __init__(self, spec: FieldSpec):
+        self.b = _Fx(spec)
+        self.L = spec.n_limbs
+        self.k = -QUAD_NR[spec.name]
+
+    def _small(self, t):
+        return times_small(self.b.add, t, self.k)
+
+    def mul(self, a, c):
+        b, L = self.b, self.L
+        a0, a1, c0, c1 = a[:L], a[L:], c[:L], c[L:]
+        t0 = b.mul(a0, c0)
+        t1 = b.mul(a1, c1)
+        s = b.mul(b.add(a0, a1), b.add(c0, c1))
+        return torch.cat([b.sub(t0, self._small(t1)), b.sub(b.sub(s, t0), t1)], 0)
+
+    def sqr(self, a):
+        b, L = self.b, self.L
+        a0, a1 = a[:L], a[L:]
+        if self.k == 1:
+            r0 = b.mul(b.add(a0, a1), b.sub(a0, a1))
+        else:
+            r0 = b.sub(b.sqr(a0), self._small(b.sqr(a1)))
+        t = b.mul(a0, a1)
+        return torch.cat([r0, b.add(t, t)], 0)
+
+    def add(self, a, c):
+        L = self.L
+        return torch.cat([self.b.add(a[:L], c[:L]), self.b.add(a[L:], c[L:])], 0)
+
+    def sub(self, a, c):
+        L = self.L
+        return torch.cat([self.b.sub(a[:L], c[:L]), self.b.sub(a[L:], c[L:])], 0)
+
+    def is_zero(self, a):
+        return self.b.is_zero(a[: self.L]) & self.b.is_zero(a[self.L :])
+
+    def one(self, like):
+        return torch.cat([self.b.one(like[: self.L]), torch.zeros_like(like[self.L :])], 0)
 
 
 def _where(mask, a, b):
@@ -155,9 +229,48 @@ def pack(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[0::2] | (x[1::2] << 16), y[0::2] | (y[1::2] << 16)], 0).contiguous()
 
 
+@functools.lru_cache(maxsize=4)
+def _k2d(spec: FieldSpec):
+    """JubJub's 2d in Montgomery form: (L,) int64 limbs and the kernel's 8
+    32-bit words (ec_lf.py::_ed_k2d_rows)."""
+    v = (2 * FP.JUBJUB_D) % spec.modulus * spec.R % spec.modulus
+    limbs = torch.tensor([(v >> (16 * i)) & ff.MASK for i in range(spec.n_limbs)], dtype=torch.int64)
+    words = (ctypes.c_uint32 * 8)(*[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+    return limbs, words
+
+
+def _ed_add_plain(f: _Fx, x1, y1, z1, t1, x2, y2, z2, t2):
+    """add-2008-hwcd-3, a = -1; z2 None is the mixed add (z2 = 1)."""
+    a = f.mul(f.sub(y1, x1), f.sub(y2, x2))
+    b = f.mul(f.add(y1, x1), f.add(y2, x2))
+    k2d = _k2d(f.spec)[0].to(x1.device).view(-1, 1).expand_as(t1)
+    c = f.mul(f.mul(t1, k2d), t2)
+    if z2 is None:
+        d = f.add(z1, z1)
+    else:
+        zz = f.mul(z1, z2)
+        d = f.add(zz, zz)
+    e = f.sub(b, a)
+    ff_ = f.sub(d, c)
+    g = f.add(d, c)
+    h = f.add(b, a)
+    return f.mul(e, ff_), f.mul(g, h), f.mul(ff_, g), f.mul(e, h)
+
+
 def _plain(which: str, spec: FieldSpec, coords):
-    f = _Fx(spec)
     c = [t.long() for t in coords]
+    f = _Fx(spec)
+    if which.startswith("ed_"):
+        if which == "ed_double":
+            out = _ed_add_plain(f, *c, *c)
+        elif which == "ed_add":
+            out = _ed_add_plain(f, *c)
+        else:
+            x2, y2 = unpack(coords[4]) if which == "ed_madd_packed" else c[4:]
+            out = _ed_add_plain(f, *c[:4], x2, y2, None, f.mul(x2, y2))
+        return tuple(t.to(torch.int32).contiguous() for t in out)
+    if which.startswith("g2_"):
+        f, which = _Fx2(spec), which[3:]
     if which == "double":
         out = _double_plain(f, *c)
     elif which == "add":
@@ -174,29 +287,58 @@ def _plain(which: str, spec: FieldSpec, coords):
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = D.library("ec_g1")
-    lib.pc_ec_op.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_longlong,
-                             ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
-    lib.pc_ec_op.restype = ctypes.c_int
+def _lib(name: str):
+    lib = D.library(name)
+    if name == "ec_g1":
+        lib.pc_ec_op.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32),
+                                 ctypes.c_void_p]
+        lib.pc_ec_op.restype = ctypes.c_int
+    elif name == "ec_g2":
+        lib.pc_ec_g2_op.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+        lib.pc_ec_g2_op.restype = ctypes.c_int
+    else:
+        lib.pc_ec_ed_op.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32),
+                                    ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+        lib.pc_ec_ed_op.restype = ctypes.c_int
     return lib
 
 
+def _check(which: str, spec: FieldSpec, coords):
+    """ff.check_limbs, with 2L rows for the G2 formulas."""
+    ff.check_limbs(spec, *coords, rows=2 * spec.n_limbs if which.startswith("g2_") else 0)
+
+
 def _run(wrapper, which: str, spec: FieldSpec, coords):
-    ff.check_limbs(spec, *coords)
+    _check(which, spec, coords)
     if coords[0].device.type == "cpu":
         return _plain(which, spec, coords)
     D.require_cuda(coords[0])
-    outs = tuple(torch.empty_like(coords[0]) for _ in range(3))
-    if coords[0].shape[1] == 0:
+    ed = which.startswith("ed_")
+    n_out = 4 if ed else 3
+    outs = tuple(torch.empty_like(coords[0]) for _ in range(n_out))
+    n = coords[0].shape[1]
+    if n == 0:
         return outs
-    ins = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in coords],
-                                *([0] * (6 - len(coords))))
-    optrs = (ctypes.c_void_p * 3)(*[t.data_ptr() for t in outs])
-    rc = _lib().pc_ec_op(_WHICH[which], ff.n_words(spec), ins, optrs,
-                         coords[0].shape[1], ff.kernel_consts(spec),
-                         D.stream_of(coords[0]))
+    n_in = 8 if ed else 6
+    ins = (ctypes.c_void_p * n_in)(*[t.data_ptr() for t in coords],
+                                   *([0] * (n_in - len(coords))))
+    optrs = (ctypes.c_void_p * n_out)(*[t.data_ptr() for t in outs])
+    consts, stream = ff.kernel_consts(spec), D.stream_of(coords[0])
+    if ed:
+        if spec is not FP.JUBJUB_FQ:
+            raise ValueError(f"{spec.name}: the Edwards kernel is JubJub's (over Fr-381)")
+        rc = _lib("ec_ed").pc_ec_ed_op(_ED_WHICH[which], ins, optrs, n, consts, _k2d(spec)[1],
+                                       stream)
+    elif which.startswith("g2_"):
+        rc = _lib("ec_g2").pc_ec_g2_op(_WHICH[which[3:]], ff.n_words(spec), -QUAD_NR[spec.name],
+                                       ins, optrs, n, consts, stream)
+    else:
+        rc = _lib("ec_g1").pc_ec_op(_WHICH[which], ff.n_words(spec), ins, optrs, n, consts,
+                                    stream)
     if rc != 0:
         raise RuntimeError(f"ec {which} kernel launch failed: CUDA error {rc}")
     wrapper.launches += 1
@@ -205,7 +347,7 @@ def _run(wrapper, which: str, spec: FieldSpec, coords):
 
 def plain(which: str, spec: FieldSpec, *coords):
     """The plain PyTorch version of formula ``which`` on any device."""
-    ff.check_limbs(spec, *coords)
+    _check(which, spec, coords)
     return _plain(which, spec, coords)
 
 
@@ -266,3 +408,117 @@ def neg(spec: FieldSpec, p):
     """-(x, y, z): y -> 0 - y (K1 subtraction)."""
     x, y, z = p
     return (x, ff.sub(spec, torch.zeros_like(y), y), z)
+
+
+# -- G2 (K2c): Weierstrass over Fq2; coordinates are (2L, N) c0||c1 stacks ----
+
+
+def g2_madd(spec, p, xq, yq):
+    """G2 Jacobian p + affine (xq, yq); complete."""
+    return _run(g2_madd, "g2_madd", spec, (p[0], p[1], p[2], xq, yq))
+
+
+def g2_madd_distinct(spec, p, xq, yq):
+    """G2 ``madd_distinct`` (q != +-p; p at infinity handled)."""
+    return _run(g2_madd_distinct, "g2_madd_distinct", spec, (p[0], p[1], p[2], xq, yq))
+
+
+def g2_madd_packed(spec, p, pq):
+    """G2 ``madd`` with the affine point packed by ``pack`` as (2L, N)
+    32-bit words: x's c0 and c1 words, then y's."""
+    return _run(g2_madd_packed, "g2_madd_packed", spec, (p[0], p[1], p[2], pq))
+
+
+def g2_madd_distinct_packed(spec, p, pq):
+    return _run(g2_madd_distinct_packed, "g2_madd_distinct_packed", spec, (p[0], p[1], p[2], pq))
+
+
+def g2_add(spec, p, q):
+    return _run(g2_add, "g2_add", spec, (p[0], p[1], p[2], q[0], q[1], q[2]))
+
+
+def g2_double(spec, p):
+    return _run(g2_double, "g2_double", spec, (p[0], p[1], p[2]))
+
+
+G2_WRAPPERS = (g2_madd, g2_madd_distinct, g2_madd_packed, g2_madd_distinct_packed, g2_add,
+               g2_double)
+
+
+def fq2_one(spec: FieldSpec, n: int, device) -> torch.Tensor:
+    """(R mod p, 0) as a (2L, n) stack."""
+    return torch.cat([ff.one_mont(spec, n, device), ff.zeros(spec, n, device)], 0)
+
+
+def g2_infinity(spec: FieldSpec, n: int, device):
+    zero = torch.zeros((2 * spec.n_limbs, n), dtype=torch.int32, device=device)
+    return (zero, fq2_one(spec, n, device), zero.clone())
+
+
+def g2_from_affine(spec: FieldSpec, x, y, inf_mask=None):
+    n = x.shape[1]
+    z = fq2_one(spec, n, x.device)
+    if inf_mask is not None:
+        z = ff.select(inf_mask, torch.zeros_like(z), z)
+    return (x, y, z)
+
+
+def g2_neg(spec: FieldSpec, p):
+    """-(x, y, z): each component of y -> 0 - y (K1 subtraction)."""
+    x, y, z = p
+    L = spec.n_limbs
+    zero = torch.zeros_like(y[:L])
+    return (x, torch.cat([ff.sub(spec, zero, y[:L].contiguous()),
+                          ff.sub(spec, zero, y[L:].contiguous())], 0), z)
+
+
+# -- JubJub (K2b): extended twisted Edwards a = -1 over Fr-381 ---------------
+
+
+def ed_madd(spec, p, xq, yq):
+    """Extended p + affine (xq, yq) (t2 = xq yq in the kernel); complete."""
+    return _run(ed_madd, "ed_madd", spec, (p[0], p[1], p[2], p[3], xq, yq))
+
+
+def ed_madd_packed(spec, p, pq):
+    """``ed_madd`` with the affine point packed by ``pack`` (16 rows)."""
+    return _run(ed_madd_packed, "ed_madd_packed", spec, (p[0], p[1], p[2], p[3], pq))
+
+
+def ed_add(spec, p, q):
+    return _run(ed_add, "ed_add", spec, (*p, *q))
+
+
+def ed_double(spec, p):
+    """The unified formula on (p, p): the same coordinates as ed_add(p, p)."""
+    return _run(ed_double, "ed_double", spec, tuple(p))
+
+
+ED_WRAPPERS = (ed_madd, ed_madd_packed, ed_add, ed_double)
+for _w in G2_WRAPPERS + ED_WRAPPERS:
+    _w.launches = 0
+
+
+def ed_infinity(spec: FieldSpec, n: int, device):
+    one = ff.one_mont(spec, n, device)
+    return (ff.zeros(spec, n, device), one, one.clone(), ff.zeros(spec, n, device))
+
+
+def ed_from_affine(spec: FieldSpec, x, y, inf_mask=None):
+    """(x, y, 1, x y); lanes in inf_mask become the identity."""
+    n = x.shape[1]
+    t = ff.mont_mul(spec, x, y)
+    one = ff.one_mont(spec, n, x.device)
+    if inf_mask is not None:
+        zero = ff.zeros(spec, n, x.device)
+        x = ff.select(inf_mask, zero, x)
+        y = ff.select(inf_mask, one, y)
+        t = ff.select(inf_mask, zero, t)
+    return (x, y, one, t)
+
+
+def ed_neg(spec: FieldSpec, p):
+    """-(x, y, z, t) = (-x, y, z, -t)."""
+    x, y, z, t = p
+    zero = torch.zeros_like(x)
+    return (ff.sub(spec, zero, x), y, z, ff.sub(spec, zero, t))

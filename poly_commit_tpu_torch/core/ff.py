@@ -199,12 +199,14 @@ def n_words(spec: FieldSpec) -> int:
     return spec.n_limbs // 2
 
 
-def check_limbs(spec: FieldSpec, *tensors) -> None:
-    """Every operand an (L, N) int32 contiguous tensor on one device."""
+def check_limbs(spec: FieldSpec, *tensors, rows: int = 0) -> None:
+    """Every operand an (L, N) int32 contiguous tensor on one device (rows
+    limb rows instead of L when given: 2L for Fq2 coordinates)."""
+    rows = rows or spec.n_limbs
     first = tensors[0]
     for t in tensors:
-        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != spec.n_limbs:
-            raise ValueError(f"expected ({spec.n_limbs}, N) int32, got {tuple(t.shape)} {t.dtype}")
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != rows:
+            raise ValueError(f"expected ({rows}, N) int32, got {tuple(t.shape)} {t.dtype}")
         if t.shape != first.shape or t.device != first.device:
             raise ValueError("operands differ in shape or device")
         if not t.is_contiguous():

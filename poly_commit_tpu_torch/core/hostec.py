@@ -1,13 +1,15 @@
-"""Host-side (Python-int) G1/G2 group law for verifier-scale math.
+"""Host-side (Python-int) group laws for verifier-scale math.
 
-A copy of the Weierstrass part of poly_commit_tpu/core/hostec.py for the
-PyTorch port, with converters to and from the port's tensors. Verifier-side
+A copy of poly_commit_tpu/core/hostec.py (Weierstrass G1/G2 and the JubJub
+Edwards group) for the PyTorch port, with converters to and from the port's
+tensors. Verifier-side
 combining touches a handful of points with big-int scalars, so it runs on
 host ints (like the reference's CPU-serial verifier); so do single-point
 multiplications in setup and the G2 points h and beta_h. Bulk prover work
 (MSMs, fixed-base tables, normalisation) stays on the device.
 
-Points are (x, y) tuples (ints, or int pairs for Fq2) with None = infinity.
+Points are (x, y) tuples (ints, or int pairs for Fq2) with None = infinity
+(Weierstrass) or (0, 1) the identity (Edwards).
 """
 
 from __future__ import annotations
@@ -227,8 +229,116 @@ def _one(f):
     return (1, 0) if isinstance(f, _Fp2) else 1
 
 
+class HostEdwards:
+    """a = -1 twisted Edwards; identity (0, 1)."""
+
+    def __init__(self, p, d, order):
+        self.p = p
+        self.d = d % p
+        self.order = order
+
+    def add(self, P, Q):
+        p, d = self.p, self.d
+        x1, y1 = P
+        x2, y2 = Q
+        dd = d * x1 * x2 * y1 * y2 % p
+        x3 = (x1 * y2 + y1 * x2) * pow(1 + dd, -1, p) % p
+        y3 = (y1 * y2 + x1 * x2) * pow(1 - dd, -1, p) % p
+        return (x3, y3)
+
+    def double(self, P):
+        return self.add(P, P)
+
+    def neg(self, P):
+        return ((-P[0]) % self.p, P[1])
+
+    def sub(self, P, Q):
+        return self.add(P, self.neg(Q))
+
+    def mul(self, P, k):
+        k = int(k) % self.order
+        acc, a = (0, 1), P
+        while k:
+            if k & 1:
+                acc = self.add(acc, a)
+            a = self.add(a, a)
+            k >>= 1
+        return acc
+
+    def msm(self, scalars, points):
+        acc = (0, 1)
+        for s, P in zip(scalars, points):
+            acc = self.add(acc, self.mul(P, s))
+        return acc
+
+    def identity(self):
+        return (0, 1)
+
+    # -- extended-coordinate fast path (a = -1; no per-op inversion) -------
+    # (X, Y, Z, T) with x = X/Z, y = Y/Z, T = XY/Z; add-2008-hwcd-3.
+
+    def _eadd(self, P, Q):
+        p, d = self.p, self.d
+        X1, Y1, Z1, T1 = P
+        X2, Y2, Z2, T2 = Q
+        A = (Y1 - X1) * (Y2 - X2) % p
+        B = (Y1 + X1) * (Y2 + X2) % p
+        C = 2 * d * T1 % p * T2 % p
+        D = 2 * Z1 * Z2 % p
+        E = B - A
+        F = D - C
+        G = D + C
+        H = B + A
+        return (E * F % p, G * H % p, F * G % p, E * H % p)
+
+    def _eto_ext(self, P):
+        x, y = P
+        return (x % self.p, y % self.p, 1, x * y % self.p)
+
+    def _eto_affine(self, P):
+        X, Y, Z, _ = P
+        zi = pow(Z, -1, self.p)
+        return (X * zi % self.p, Y * zi % self.p)
+
+    def mul_fast(self, P, k):
+        k = int(k) % self.order
+        acc = (0, 1, 1, 0)
+        base = self._eto_ext(P)
+        for bit in reversed(range(max(1, k.bit_length()))):
+            acc = self._eadd(acc, acc)
+            if (k >> bit) & 1:
+                acc = self._eadd(acc, base)
+        return self._eto_affine(acc)
+
+    def msm_fast(self, scalars, points):
+        pairs = [
+            (int(s) % self.order, self._eto_ext(P))
+            for s, P in zip(scalars, points)
+            if int(s) % self.order != 0 and tuple(P) != (0, 1)
+        ]
+        if not pairs:
+            return (0, 1)
+        nbits = max(s.bit_length() for s, _ in pairs)
+        acc = (0, 1, 1, 0)
+        for bit in reversed(range(nbits)):
+            acc = self._eadd(acc, acc)
+            for s, P in pairs:
+                if (s >> bit) & 1:
+                    acc = self._eadd(acc, P)
+        return self._eto_affine(acc)
+
+
+def _is_edwards(group) -> bool:
+    return group.name == "jubjub"
+
+
+def _is_g2(group) -> bool:
+    return group.name.endswith("_g2")
+
+
 def host_group(group):
-    """The host mirror of a group, by name (G1 or G2 of either BLS curve)."""
+    """The host mirror of a group, by name (G1 or G2 of either BLS curve,
+    or JubJub)."""
     n = group.name
     if n == "bls12_381_g1":
         return HostWeierstrass(_Fp(FP.BLS12_381_Q), FP.BLS12_381_R)
@@ -238,27 +348,38 @@ def host_group(group):
         return HostWeierstrass(_Fp(FP.BLS12_377_Q), FP.BLS12_377_R)
     if n == "bls12_377_g2":
         return HostWeierstrass(_Fp2(FP.BLS12_377_Q, -5), FP.BLS12_377_R)
+    if n == "jubjub":
+        return HostEdwards(FP.BLS12_381_R, FP.JUBJUB_D, FP.JUBJUB_R)
     raise ValueError(n)
 
 
 def device_proj_to_host(group, p):
-    """Device projective point (coords (L,)) -> host affine point,
-    normalised on host ints."""
+    """Device projective point (batch ()) -> host affine point, normalised
+    on host ints (G2 coordinates become (c0, c1) pairs)."""
     from . import field as F
 
+    coords = [F.to_ints(group.spec, c) for c in p]
     hg = host_group(group)
-    X, Y, Z = (F.to_ints(group.spec, c) for c in p)
-    return hg._jto_affine((X, Y, Z))
+    if _is_edwards(group):
+        X, Y, Z, _ = coords
+        zi = pow(Z, -1, hg.p)
+        return (X * zi % hg.p, Y * zi % hg.p)
+    if _is_g2(group):
+        coords = [tuple(c) for c in coords]
+    return hg._jto_affine(tuple(coords))
 
 
 def host_point_to_device(group, P, device):
-    """One host affine point -> device projective point, coords (L,)."""
+    """One host affine point -> device projective point, batch ()."""
+    from . import extfield as E2
     from . import field as F
 
+    if _is_edwards(group) and P is None:
+        P = (0, 1)
     if P is None:
         return group.infinity((), device)
-    return group.from_affine(F.from_ints(group.spec, P[0], device=device),
-                             F.from_ints(group.spec, P[1], device=device))
+    conv = E2.from_int if _is_g2(group) else (lambda s, v, d: F.from_ints(s, v, device=d))
+    return group.from_affine(conv(group.spec, P[0], device), conv(group.spec, P[1], device))
 
 
 def triple_to_host(t):

@@ -1,25 +1,29 @@
 """MSM and fixed-base multiplication entry points on limbs-last points.
 
 Counterpart of poly_commit_tpu/core/msm.py. Points are the scheme layer's
-tensors: affine (x (N, L), y (N, L), inf (N,)) and projective (X, Y, Z)
-with coords (L,). Every call runs core/msm_gpu.py on the tensors' device,
-whatever N is: there is no host big-int route and no small-N route, so on a
-CUDA tensor every MSM goes through the kernels K1, K2a and K3.
+tensors: affine (x, y, inf) with x, y (N, L) in G1 and JubJub, (N, 2, L)
+(c0, c1) pairs in G2; projective points have coords (L,), or (2, L) in G2.
+Every call runs core/msm_gpu.py on the tensors' device, whatever N is, with
+the group's ops (msm_gpu.ops_for): there is no host big-int route and no
+small-N route, so on a CUDA tensor every MSM goes through the kernels K1,
+K3 and K2a (G1), K2c (G2) or K2b (JubJub).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import ff
 from . import field as F
 from . import msm_gpu
 from .field_params import FieldSpec
 
 
-def _check_group(group):
-    if 4 * group.spec.modulus > group.spec.R:
-        raise ValueError(f"{group.name}: the MSM kernels need R >= 4p")
+def _ops(group):
+    """The group's msm_gpu ops, after checking that its kernels apply."""
+    ops = msm_gpu.ops_for(group)
+    if ops is not msm_gpu.EDWARDS_OPS and 4 * group.spec.modulus > group.spec.R:
+        raise ValueError(f"{group.name}: the Weierstrass MSM kernels need R >= 4p")
+    return ops
 
 
 def msm(group, scalars: torch.Tensor, points, assume_distinct: bool = False):
@@ -27,18 +31,17 @@ def msm(group, scalars: torch.Tensor, points, assume_distinct: bool = False):
 
     scalars: (N, 16) int32 plain (non-Montgomery) 16-bit limbs.
     points:  affine (x, y, inf) with leading batch axis N.
-    Returns a projective point with coords (L,), canonical.
+    Returns a projective point, batch (), canonical.
 
     assume_distinct: the bases are pairwise DL-independent (true for every
-    SRS), which lets the scan use the branch-free mixed add; NOT safe for
-    repeated or adversarial points (P + P would silently give infinity).
+    SRS), which lets the Weierstrass scans use the branch-free mixed add;
+    NOT safe for repeated or adversarial points (P + P would silently give
+    infinity).
     """
-    _check_group(group)
-    spec = group.spec
+    ops = _ops(group)
     x, y, inf = points
-    out = msm_gpu.msm(group, scalars, ff.from_field_last(x), ff.from_field_last(y), inf,
-                      assume_distinct)
-    return tuple(ff.canonicalize(spec, cc)[:, 0] for cc in out)
+    out = msm_gpu.msm(group, scalars, ops.to_lf(x), ops.to_lf(y), inf, assume_distinct)
+    return tuple(ops.from_lf(group.spec, cc, ()) for cc in out)
 
 
 def msm_mont(group, scalars_mont: torch.Tensor, points, **kw):
@@ -47,17 +50,15 @@ def msm_mont(group, scalars_mont: torch.Tensor, points, **kw):
 
 
 def fixed_base_mul(group, base, scalars: torch.Tensor):
-    """[s_i * base] for a projective base (coords (L,)): projective points
-    with coords (N, L), canonical. A base at infinity gives infinity."""
-    _check_group(group)
-    spec = group.spec
+    """[s_i * base] for a projective base in G1 or G2: projective points
+    with batch (N,), canonical. A base at infinity gives infinity."""
+    ops = _ops(group)
     bx, by, binf = group.to_affine(base)
     n = scalars.shape[0]
     if bool(binf):
         return group.infinity((n,), bx.device)
-    out = msm_gpu.fixed_base(spec, bx.view(-1, 1).contiguous(), by.view(-1, 1).contiguous(),
-                             scalars)
-    return tuple(ff.to_field_last(ff.canonicalize(spec, cc), (n,)) for cc in out)
+    out = msm_gpu.fixed_base(group, ops.to_lf(bx[None]), ops.to_lf(by[None]), scalars)
+    return tuple(ops.from_lf(group.spec, cc, (n,)) for cc in out)
 
 
 def scalars_from_ints(spec: FieldSpec, ints, device=None) -> torch.Tensor:

@@ -7,14 +7,21 @@ Counterpart of poly_commit_tpu/core/msm_tpu.py, following ``_msm_body``:
      counting sort of core/sort_gpu.py (K3), which also yields the bucket
      tails.
   2. The sorted points are laid out as T lanes x S steps per window; one
-     loop of S launches of the packed mixed add (K2a) accumulates every
-     lane's prefix, and each step's prefix is kept.
+     loop of S launches of the packed mixed add accumulates every lane's
+     prefix, and each step's prefix is kept.
   3. A Blelloch tree over the T lanes (2 log2 T launches of ``add``) turns
      the lane totals into exclusive cross-lane prefixes.
   4. Each bucket's running sum G_b is the global prefix at its tail:
      lane prefix + within-lane prefix, one gathered ``add``.
   5. Abel summation S_w = (2^c - 1) G_last - sum_{b < 2^c - 1} G_b: a
      halving tree of ``add`` launches; the windows fold on the host.
+
+The group law comes from an ops object, as in msm_tpu.py: ``JACOBIAN_OPS``
+(G1, kernel K2a), ``G2_OPS`` (G2 over Fq2, K2c; coordinates are (2L, N)
+stacks) and ``EDWARDS_OPS`` (JubJub, K2b; four coordinates, complete, so
+the distinct forms do not exist and the digit sentinel alone skips
+padding). ``ops_for(group)`` picks one; it also carries the group's
+layouts between the scheme layer and the limbs-first kernels.
 
 T and c are chosen from the device and N: on the card c = 16 and T = 4096
 from 2^16 points up (16 windows x 4096 lanes = 65,536 points per launch),
@@ -25,7 +32,10 @@ where the plain versions run eagerly. The result is the same group element.
 card: the 256 doublings of the base (``double``), one batched normalisation
 of all of them (K1), a table d * 2^(c w) g built in c launches of
 ``madd_distinct`` (row k..2k-1 = rows 0..k-1 + 2^(c w + log k) g) and
-normalised, then one complete ``madd`` per window over all scalars.
+normalised, then one complete ``madd`` per window over all scalars. It is
+generic over the Jacobian groups, so G2 setup runs on K2c (the JAX package
+sends G2 fixed-base through its portable scan instead; the group elements
+are the same).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import ec_lf as EC
+from . import extfield as E2
 from . import ff
 from . import hostec
 from . import sort_gpu
@@ -58,6 +69,178 @@ def fixed_base_window(device: torch.device) -> int:
     return 8 if device.type == "cuda" else 4
 
 
+def _fl_to_lf(a: torch.Tensor) -> torch.Tensor:
+    return ff.from_field_last(a)
+
+
+def _lf_to_fl(spec: FieldSpec, a: torch.Tensor, batch_shape) -> torch.Tensor:
+    return ff.to_field_last(ff.canonicalize(spec, a), batch_shape)
+
+
+class JACOBIAN_OPS:
+    """G1 Jacobian (3 coordinates of L rows): kernel K2a. ``to_lf`` and
+    ``from_lf`` carry the scheme layer's (N, L) to the kernels' (L, N) and
+    back, canonical."""
+
+    n_coords = 3
+    host_identity = None
+    to_lf = staticmethod(_fl_to_lf)
+    from_lf = staticmethod(_lf_to_fl)
+
+    @staticmethod
+    def rows(spec):
+        return spec.n_limbs
+
+    @staticmethod
+    def madd(spec, p, x, y, distinct: bool):
+        return (EC.madd_distinct if distinct else EC.madd)(spec, p, x, y)
+
+    @staticmethod
+    def madd_packed(spec, p, pq, distinct: bool):
+        return (EC.madd_distinct_packed if distinct else EC.madd_packed)(spec, p, pq)
+
+    add = staticmethod(EC.add)
+    double = staticmethod(EC.double)
+    from_affine = staticmethod(EC.from_affine)
+
+    @staticmethod
+    def infinity(spec, n, device):
+        return EC.infinity(spec, n, device)
+
+    @staticmethod
+    def to_affine(spec, p):
+        return jacobian_to_affine(spec, p)
+
+    @staticmethod
+    def to_host(spec, hg, coords):
+        q = spec.modulus
+        xs, ys, zs = (ff.to_ints(spec, cc) for cc in coords)
+        pts = []
+        for x, y, z in zip(xs, ys, zs):
+            if z == 0:
+                pts.append(None)
+                continue
+            zi = pow(z, -1, q)
+            pts.append((x * zi * zi % q, y * zi * zi * zi % q))
+        return pts
+
+    @staticmethod
+    def from_host(spec, pt, device):
+        if pt is None:
+            return EC.infinity(spec, 1, device)
+        return (ff.from_ints(spec, [pt[0]], device=device),
+                ff.from_ints(spec, [pt[1]], device=device), ff.one_mont(spec, 1, device))
+
+
+class G2_OPS:
+    """G2 Jacobian over Fq2 (3 coordinates of 2L rows, c0 over c1): kernel
+    K2c. The scheme layer's (N, 2, L) pairs become (2L, N) stacks."""
+
+    n_coords = 3
+    host_identity = None
+    to_lf = staticmethod(E2.to_lf)
+
+    @staticmethod
+    def from_lf(spec, a, batch_shape):
+        return E2.from_lf(E2.canonicalize_lf(spec, a), batch_shape)
+
+    @staticmethod
+    def rows(spec):
+        return 2 * spec.n_limbs
+
+    @staticmethod
+    def madd(spec, p, x, y, distinct: bool):
+        return (EC.g2_madd_distinct if distinct else EC.g2_madd)(spec, p, x, y)
+
+    @staticmethod
+    def madd_packed(spec, p, pq, distinct: bool):
+        return (EC.g2_madd_distinct_packed if distinct else EC.g2_madd_packed)(spec, p, pq)
+
+    add = staticmethod(EC.g2_add)
+    double = staticmethod(EC.g2_double)
+    from_affine = staticmethod(EC.g2_from_affine)
+
+    @staticmethod
+    def infinity(spec, n, device):
+        return EC.g2_infinity(spec, n, device)
+
+    @staticmethod
+    def to_affine(spec, p):
+        return jacobian_to_affine_fq2(spec, p)
+
+    @staticmethod
+    def to_host(spec, hg, coords):
+        L = spec.n_limbs
+        xs, ys, zs = (list(zip(ff.to_ints(spec, cc[:L]), ff.to_ints(spec, cc[L:])))
+                      for cc in coords)
+        return [hg._jto_affine((x, y, z)) for x, y, z in zip(xs, ys, zs)]
+
+    @staticmethod
+    def from_host(spec, pt, device):
+        if pt is None:
+            return EC.g2_infinity(spec, 1, device)
+
+        def dev2(e):
+            return torch.cat([ff.from_ints(spec, [e[0]], device=device),
+                              ff.from_ints(spec, [e[1]], device=device)], 0)
+
+        return (dev2(pt[0]), dev2(pt[1]), EC.fq2_one(spec, 1, device))
+
+
+class EDWARDS_OPS:
+    """JubJub extended coordinates (4 coordinates of L rows): kernel K2b.
+    The unified addition is complete: ``madd`` ignores ``distinct``."""
+
+    n_coords = 4
+    host_identity = (0, 1)
+    to_lf = staticmethod(_fl_to_lf)
+    from_lf = staticmethod(_lf_to_fl)
+
+    @staticmethod
+    def rows(spec):
+        return spec.n_limbs
+
+    @staticmethod
+    def madd(spec, p, x, y, distinct: bool):
+        return EC.ed_madd(spec, p, x, y)
+
+    @staticmethod
+    def madd_packed(spec, p, pq, distinct: bool):
+        return EC.ed_madd_packed(spec, p, pq)
+
+    add = staticmethod(EC.ed_add)
+    double = staticmethod(EC.ed_double)
+
+    @staticmethod
+    def infinity(spec, n, device):
+        return EC.ed_infinity(spec, n, device)
+
+    @staticmethod
+    def to_host(spec, hg, coords):
+        p = spec.modulus
+        xs, ys, zs = (ff.to_ints(spec, cc) for cc in coords[:3])
+        out = []
+        for x, y, z in zip(xs, ys, zs):
+            zi = pow(z, -1, p)
+            out.append((x * zi % p, y * zi % p))
+        return out
+
+    @staticmethod
+    def from_host(spec, pt, device):
+        pt = (0, 1) if pt is None else pt
+        return EC.ed_from_affine(spec, ff.from_ints(spec, [pt[0]], device=device),
+                                 ff.from_ints(spec, [pt[1]], device=device))
+
+
+def ops_for(group):
+    """The ops object of a device group (G1, G2 or JubJub)."""
+    if hostec._is_edwards(group):
+        return EDWARDS_OPS
+    if hostec._is_g2(group):
+        return G2_OPS
+    return JACOBIAN_OPS
+
+
 def _digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
     """(N, 16) plain 16-bit limbs -> (W, N) c-bit window digits (int32)."""
     w_count = SCALAR_BITS // c
@@ -72,11 +255,14 @@ def _flat(pts, L: int, m: int):
     return tuple(cc.reshape(L, m).contiguous() for cc in pts)
 
 
-def _msm_body(spec: FieldSpec, scalars, x, y, inf, assume_distinct: bool, c: int, t_lanes: int):
-    """scalars (N, 16) plain; x, y (L, N) affine; inf (N,) bool; N a
-    multiple of T. Returns G_last and sum G per window: 6 coords (L, W)."""
+def _msm_body(spec: FieldSpec, ops, scalars, x, y, inf, assume_distinct: bool, c: int,
+              t_lanes: int):
+    """scalars (N, 16) plain; x, y (rows, N) affine; inf (N,) bool; N a
+    multiple of T. Returns G_last and sum G per window: 2 n_coords coords
+    (rows, W)."""
     n = scalars.shape[0]
-    L = spec.n_limbs
+    L = ops.rows(spec)
+    nc = ops.n_coords
     dev = x.device
     bsz = 1 << c
     w_count = SCALAR_BITS // c
@@ -91,14 +277,13 @@ def _msm_body(spec: FieldSpec, scalars, x, y, inf, assume_distinct: bool, c: int
     idx_l = order.view(w_count, t_lanes, l_steps).permute(2, 0, 1).reshape(l_steps, m)
     keep_l = (sd != bsz).view(w_count, t_lanes, l_steps).permute(2, 0, 1).reshape(l_steps, m)
     packed = EC.pack(x, y)  # x and y limb pairs as 32-bit words: one gather
-    madd = EC.madd_distinct_packed if assume_distinct else EC.madd_packed
 
-    acc = EC.infinity(spec, m, dev)
-    prefixes = torch.empty((3, L, l_steps, m), dtype=torch.int32, device=dev)
+    acc = ops.infinity(spec, m, dev)
+    prefixes = torch.empty((nc, L, l_steps, m), dtype=torch.int32, device=dev)
     for s in range(l_steps):
         g = packed.index_select(1, idx_l[s])
-        acc = EC.select(keep_l[s], madd(spec, acc, g), acc)
-        for k in range(3):
+        acc = EC.select(keep_l[s], ops.madd_packed(spec, acc, g, assume_distinct), acc)
+        for k in range(nc):
             prefixes[k, :, s] = acc[k]
 
     # exclusive prefix of the lane totals per window (Blelloch)
@@ -111,12 +296,12 @@ def _msm_body(spec: FieldSpec, scalars, x, y, inf, assume_distinct: bool, c: int
         odd = tuple(cc[:, :, 1::2] for cc in sums)
         stack.append(even)
         width //= 2
-        s2 = EC.add(spec, _flat(even, L, w_count * width), _flat(odd, L, w_count * width))
+        s2 = ops.add(spec, _flat(even, L, w_count * width), _flat(odd, L, w_count * width))
         sums = tuple(cc.view(L, w_count, width) for cc in s2)
-    pref = tuple(cc.view(L, w_count, 1) for cc in EC.infinity(spec, w_count, dev))
+    pref = tuple(cc.view(L, w_count, 1) for cc in ops.infinity(spec, w_count, dev))
     width = 1
     for lv in reversed(range(levels)):
-        odd = EC.add(spec, _flat(pref, L, w_count * width), _flat(stack[lv], L, w_count * width))
+        odd = ops.add(spec, _flat(pref, L, w_count * width), _flat(stack[lv], L, w_count * width))
         pref = tuple(
             torch.stack([pe, po.view(L, w_count, width)], dim=3).reshape(L, w_count, 2 * width)
             for pe, po in zip(pref, odd)
@@ -131,49 +316,37 @@ def _msm_body(spec: FieldSpec, scalars, x, y, inf, assume_distinct: bool, c: int
     step = pos % l_steps
     lane_flat = (lane + (torch.arange(w_count, device=dev) * t_lanes).unsqueeze(1)).reshape(-1)
     at = step.reshape(-1) * m + lane_flat
-    within = tuple(prefixes[k].view(L, l_steps * m).index_select(1, at) for k in range(3))
+    within = tuple(prefixes[k].view(L, l_steps * m).index_select(1, at) for k in range(nc))
     del prefixes
     lp_at = tuple(cc.index_select(1, lane_flat) for cc in lane_pref)
-    g = EC.add(spec, within, lp_at)
-    g = EC.select((tails >= 0).reshape(-1), g, EC.infinity(spec, g[0].shape[1], dev))
+    g = ops.add(spec, within, lp_at)
+    g = EC.select((tails >= 0).reshape(-1), g, ops.infinity(spec, g[0].shape[1], dev))
 
     # Abel summation: S_w = (bsz - 1) G_last - sum_{b < bsz - 1} G_b
     g3 = tuple(cc.view(L, w_count, bsz) for cc in g)
     g_last = tuple(cc[:, :, bsz - 1].contiguous() for cc in g3)
-    inf_col = tuple(cc.view(L, w_count, 1) for cc in EC.infinity(spec, w_count, dev))
+    inf_col = tuple(cc.view(L, w_count, 1) for cc in ops.infinity(spec, w_count, dev))
     cur = tuple(torch.cat([cc[:, :, : bsz - 1], ic], dim=2) for cc, ic in zip(g3, inf_col))
     mlen = bsz
     while mlen > 1:
         half = mlen // 2
-        s2 = EC.add(spec, _flat(tuple(cc[:, :, :half] for cc in cur), L, w_count * half),
-                    _flat(tuple(cc[:, :, half:] for cc in cur), L, w_count * half))
+        s2 = ops.add(spec, _flat(tuple(cc[:, :, :half] for cc in cur), L, w_count * half),
+                     _flat(tuple(cc[:, :, half:] for cc in cur), L, w_count * half))
         cur = tuple(cc.view(L, w_count, half) for cc in s2)
         mlen = half
     sum_g = tuple(cc[:, :, 0].contiguous() for cc in cur)
     return g_last + sum_g
 
 
-def _to_host_pts(spec: FieldSpec, coords):
-    q = spec.modulus
-    xs, ys, zs = (ff.to_ints(spec, cc) for cc in coords)
-    pts = []
-    for x, y, z in zip(xs, ys, zs):
-        if z == 0:
-            pts.append(None)
-            continue
-        zi = pow(z, -1, q)
-        pts.append((x * zi * zi % q, y * zi * zi * zi % q))
-    return pts
-
-
-def _fold_host(group, parts, c: int):
+def _fold_host(group, ops, parts, c: int):
     """S_w = (2^c - 1) G_last - sum G per window, then the Horner fold over
     windows, on host ints (a few dozen points). Returns a host point."""
     grp = hostec.host_group(group)
-    g_last = _to_host_pts(group.spec, parts[:3])
-    sum_g = _to_host_pts(group.spec, parts[3:])
+    nc = ops.n_coords
+    g_last = ops.to_host(group.spec, grp, parts[:nc])
+    sum_g = ops.to_host(group.spec, grp, parts[nc:])
     pts = [grp.sub(grp.mul(gl, (1 << c) - 1), sg) for gl, sg in zip(g_last, sum_g)]
-    acc = None
+    acc = ops.host_identity
     for pt in reversed(pts):
         for _ in range(c):
             acc = grp.double(acc)
@@ -181,23 +354,18 @@ def _fold_host(group, parts, c: int):
     return acc
 
 
-def _from_host(spec: FieldSpec, pt, device):
-    if pt is None:
-        return EC.infinity(spec, 1, device)
-    return (ff.from_ints(spec, [pt[0]], device=device), ff.from_ints(spec, [pt[1]], device=device),
-            ff.one_mont(spec, 1, device))
-
-
 def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
     """sum_i scalars[i] * (x_i, y_i): scalars (N, 16) int32 plain limbs,
-    x, y (L, N) affine Montgomery limbs, inf (N,) bool. Returns Jacobian
-    coords (L, 1).
+    x, y (rows, N) affine Montgomery limbs (2L rows, c0 over c1, in G2),
+    inf (N,) bool. Returns the group's projective coords (rows, 1).
 
     assume_distinct: the bases are pairwise DL-independent (every SRS), so
-    the scan may use ``madd_distinct_packed``; repeated bases then give wrong
-    sums. Otherwise the complete ``madd_packed`` runs.
+    the scan may use the distinct mixed add; repeated bases then give wrong
+    sums. Otherwise the complete mixed add runs. JubJub's addition is
+    complete either way.
     """
     spec = group.spec
+    ops = ops_for(group)
     n = scalars.shape[0]
     dev = x.device
     if n > CHUNK:
@@ -205,7 +373,7 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
         for s in range(0, n, CHUNK):
             part = msm(group, scalars[s : s + CHUNK], x[:, s : s + CHUNK].contiguous(),
                        y[:, s : s + CHUNK].contiguous(), inf[s : s + CHUNK], assume_distinct)
-            acc = part if acc is None else EC.add(spec, acc, part)
+            acc = part if acc is None else ops.add(spec, acc, part)
         return acc
     c, t_lanes = params(dev, n)
     n2 = 1 << max(t_lanes.bit_length() - 1, (n - 1).bit_length())
@@ -215,8 +383,8 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
         x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
         y = torch.cat([y, y.new_zeros((y.shape[0], pad))], 1)
         inf = torch.cat([inf, inf.new_ones((pad,))], 0)
-    parts = _msm_body(spec, scalars, x, y, inf, assume_distinct, c, t_lanes)
-    return _from_host(spec, _fold_host(group, parts, c), dev)
+    parts = _msm_body(spec, ops, scalars, x, y, inf, assume_distinct, c, t_lanes)
+    return ops.from_host(spec, _fold_host(group, ops, parts, c), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -269,46 +437,59 @@ def jacobian_to_affine(spec: FieldSpec, p):
     return ff.mont_mul(spec, x, zi2), ff.mont_mul(spec, y, ff.mont_mul(spec, zi2, zi))
 
 
+def jacobian_to_affine_fq2(spec: FieldSpec, p):
+    """G2 (x, y, z) (2L, M) -> affine (x, y) (2L, M), one batched Fq2
+    inversion (its norms share one Fermat inversion); infinity -> (0, 0)."""
+    x, y, z = p
+    zi = E2.batch_inv_lf(spec, z)
+    zi2 = E2.mul_lf(spec, zi, zi)
+    return E2.mul_lf(spec, x, zi2), E2.mul_lf(spec, y, E2.mul_lf(spec, zi2, zi))
+
+
 # ---------------------------------------------------------------------------
 # fixed-base batch multiplication (every scheme's SRS setup)
 # ---------------------------------------------------------------------------
 
 
-def fixed_base(spec: FieldSpec, gx, gy, scalars: torch.Tensor):
-    """[s_i * g]: gx, gy (L, 1) affine limbs of g (not infinity), scalars
-    (N, 16) int32 plain. Returns Jacobian coords (L, N)."""
+def fixed_base(group, gx, gy, scalars: torch.Tensor):
+    """[s_i * g] in a Jacobian group (G1 or G2): gx, gy (rows, 1) affine
+    limbs of g (not infinity), scalars (N, 16) int32 plain. Returns Jacobian
+    coords (rows, N)."""
+    spec = group.spec
+    ops = ops_for(group)
+    if ops is EDWARDS_OPS:
+        raise ValueError("fixed_base takes a Weierstrass group")
     dev = gx.device
     c = fixed_base_window(dev)
-    L = spec.n_limbs
+    L = ops.rows(spec)
     w_count = SCALAR_BITS // c
     bsz = 1 << c
     n = scalars.shape[0]
 
     # 2^k g for k < 256, then all of them affine in one batched inversion
-    p = EC.from_affine(spec, gx, gy)
+    p = ops.from_affine(spec, gx, gy)
     chain = []
     for _ in range(SCALAR_BITS):
         chain.append(p)
-        p = EC.double(spec, p)
-    cx, cy = jacobian_to_affine(
-        spec, tuple(torch.cat([q[k] for q in chain], dim=1) for k in range(3)))
+        p = ops.double(spec, p)
+    cx, cy = ops.to_affine(spec, tuple(torch.cat([q[k] for q in chain], dim=1) for k in range(3)))
 
     # tab[w][d] = d 2^(c w) g: rows [k, 2k) = rows [0, k) + 2^(c w + j) g,
-    # k = 2^j; the addend never equals +-row, so madd_distinct is exact
-    tab = tuple(cc.view(L, w_count, 1) for cc in EC.infinity(spec, w_count, dev))
+    # k = 2^j; the addend never equals +-row, so the distinct madd is exact
+    tab = tuple(cc.view(L, w_count, 1) for cc in ops.infinity(spec, w_count, dev))
     for j in range(c):
         k = 1 << j
         ax = cx[:, j::c].unsqueeze(2).expand(L, w_count, k)
         ay = cy[:, j::c].unsqueeze(2).expand(L, w_count, k)
-        new = EC.madd_distinct(spec, _flat(tab, L, w_count * k), *_flat((ax, ay), L, w_count * k))
+        new = ops.madd(spec, _flat(tab, L, w_count * k), *_flat((ax, ay), L, w_count * k), True)
         tab = tuple(torch.cat([t, nw.view(L, w_count, k)], dim=2) for t, nw in zip(tab, new))
-    tx, ty = jacobian_to_affine(spec, _flat(tab, L, w_count * bsz))
+    tx, ty = ops.to_affine(spec, _flat(tab, L, w_count * bsz))
 
     digs = _digits(scalars, c)
-    acc = EC.infinity(spec, n, dev)
+    acc = ops.infinity(spec, n, dev)
     for w in range(w_count):
         d = digs[w]
         idx = d.long() + w * bsz
-        added = EC.madd(spec, acc, tx.index_select(1, idx), ty.index_select(1, idx))
+        added = ops.madd(spec, acc, tx.index_select(1, idx), ty.index_select(1, idx), False)
         acc = EC.select(d != 0, added, acc)
     return acc

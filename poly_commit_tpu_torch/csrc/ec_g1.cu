@@ -1,227 +1,15 @@
 // K2a: G1 Jacobian formulas, one thread per point, every temporary in
 // registers. Replaces the G1 entries of poly_commit_tpu/core/ec_lf.py::_ec_fn
 // (madd-2007-bl, its distinct and packed variants, add-2007-bl made complete
-// by edge cases, dbl-2009-l). The field arithmetic is ff.cuh's, so one
-// source serves the BLS12-381, BLS12-377 (NW = 12) and BN254 (NW = 8) Fq.
+// by edge cases, dbl-2009-l); the formulas are ec_jac.cuh's over ff.cuh's
+// field, so one source serves the BLS12-381, BLS12-377 (NW = 12) and BN254
+// (NW = 8) Fq.
 //
 // Points are (x, y, z) with each coordinate an (L, N) int32 tensor of 16-bit
 // limbs; z == 0 mod p is infinity, written as (0, R mod p, 0). The packed
 // affine input is one (L, N) tensor whose rows 0..NW-1 are the 32-bit words
 // of x and rows NW..2NW-1 those of y.
-#include <cstring>
-
-#include "ff.cuh"
-
-namespace {
-
-struct EcArgs {
-  const int32_t* in[6];
-  int32_t* out[3];
-};
-
-enum Which { MADD = 0, MADD_DISTINCT = 1, MADD_PACKED = 2, MADD_DISTINCT_PACKED = 3, ADD = 4, DOUBLE = 5 };
-
-template <int NW>
-struct Pt {
-  Fe<NW> x, y, z;
-};
-
-// dbl-2009-l (a = 0): 2M + 5S.
-template <int NW>
-__device__ __forceinline__ void pt_double(Pt<NW>& o, const Pt<NW>& p, const FieldConsts& c) {
-  Fe<NW> a, b, cc, d, e, f, t;
-  fe_sqr<NW>(a, p.x, c);
-  fe_sqr<NW>(b, p.y, c);
-  fe_sqr<NW>(cc, b, c);
-  fe_add<NW>(t, p.x, b, c);
-  fe_sqr<NW>(d, t, c);
-  fe_sub<NW>(d, d, a, c);
-  fe_sub<NW>(d, d, cc, c);
-  fe_add<NW>(d, d, d, c);
-  fe_add<NW>(e, a, a, c);
-  fe_add<NW>(e, e, a, c);
-  fe_sqr<NW>(f, e, c);
-  Fe<NW> x3, y3, z3;
-  fe_add<NW>(t, d, d, c);
-  fe_sub<NW>(x3, f, t, c);
-  fe_sub<NW>(t, d, x3, c);
-  fe_mul<NW>(y3, e, t, c);
-  fe_add<NW>(cc, cc, cc, c);
-  fe_add<NW>(cc, cc, cc, c);
-  fe_add<NW>(cc, cc, cc, c);
-  fe_sub<NW>(y3, y3, cc, c);
-  fe_mul<NW>(z3, p.y, p.z, c);
-  fe_add<NW>(z3, z3, z3, c);
-  o.x = x3;
-  o.y = y3;
-  o.z = z3;
-}
-
-template <int NW>
-__device__ __forceinline__ void pt_infinity(Pt<NW>& o, const FieldConsts& c) {
-  fe_set_zero<NW>(o.x);
-  fe_set_one<NW>(o.y, c);
-  fe_set_zero<NW>(o.z);
-}
-
-// madd-2007-bl: Jacobian p + affine (x2, y2), 7M + 4S. With complete set,
-// p == q doubles and p == -q gives infinity; p at infinity gives q.
-template <int NW, bool COMPLETE>
-__device__ __forceinline__ void pt_madd(Pt<NW>& o, const Pt<NW>& p, const Fe<NW>& x2,
-                                        const Fe<NW>& y2, const FieldConsts& c) {
-  if (fe_is_zero<NW>(p.z, c)) {
-    o.x = x2;
-    o.y = y2;
-    fe_set_one<NW>(o.z, c);
-    return;
-  }
-  Fe<NW> z1z1, u2, s2, h, hh, i, j, r, v, t;
-  fe_sqr<NW>(z1z1, p.z, c);
-  fe_mul<NW>(u2, x2, z1z1, c);
-  fe_mul<NW>(s2, y2, p.z, c);
-  fe_mul<NW>(s2, s2, z1z1, c);
-  fe_sub<NW>(h, u2, p.x, c);
-  fe_sub<NW>(r, s2, p.y, c);
-  if (COMPLETE && fe_is_zero<NW>(h, c)) {
-    if (fe_is_zero<NW>(r, c)) pt_double<NW>(o, p, c);
-    else pt_infinity<NW>(o, c);
-    return;
-  }
-  fe_sqr<NW>(hh, h, c);
-  fe_add<NW>(i, hh, hh, c);
-  fe_add<NW>(i, i, i, c);
-  fe_mul<NW>(j, h, i, c);
-  fe_add<NW>(r, r, r, c);
-  fe_mul<NW>(v, p.x, i, c);
-  Fe<NW> x3, y3, z3;
-  fe_sqr<NW>(x3, r, c);
-  fe_sub<NW>(x3, x3, j, c);
-  fe_add<NW>(t, v, v, c);
-  fe_sub<NW>(x3, x3, t, c);
-  fe_sub<NW>(t, v, x3, c);
-  fe_mul<NW>(y3, r, t, c);
-  fe_mul<NW>(t, p.y, j, c);
-  fe_add<NW>(t, t, t, c);
-  fe_sub<NW>(y3, y3, t, c);
-  fe_add<NW>(t, p.z, h, c);
-  fe_sqr<NW>(z3, t, c);
-  fe_sub<NW>(z3, z3, z1z1, c);
-  fe_sub<NW>(z3, z3, hh, c);
-  o.x = x3;
-  o.y = y3;
-  o.z = z3;
-}
-
-// add-2007-bl: Jacobian p + q, 11M + 5S, complete.
-template <int NW>
-__device__ __forceinline__ void pt_add(Pt<NW>& o, const Pt<NW>& p, const Pt<NW>& q,
-                                       const FieldConsts& c) {
-  if (fe_is_zero<NW>(p.z, c)) {
-    o = q;
-    return;
-  }
-  if (fe_is_zero<NW>(q.z, c)) {
-    o = p;
-    return;
-  }
-  Fe<NW> z1z1, z2z2, u1, u2, s1, s2, h, i, j, r, v, t;
-  fe_sqr<NW>(z1z1, p.z, c);
-  fe_sqr<NW>(z2z2, q.z, c);
-  fe_mul<NW>(u1, p.x, z2z2, c);
-  fe_mul<NW>(u2, q.x, z1z1, c);
-  fe_mul<NW>(s1, p.y, q.z, c);
-  fe_mul<NW>(s1, s1, z2z2, c);
-  fe_mul<NW>(s2, q.y, p.z, c);
-  fe_mul<NW>(s2, s2, z1z1, c);
-  fe_sub<NW>(h, u2, u1, c);
-  fe_sub<NW>(r, s2, s1, c);
-  if (fe_is_zero<NW>(h, c)) {
-    if (fe_is_zero<NW>(r, c)) pt_double<NW>(o, p, c);
-    else pt_infinity<NW>(o, c);
-    return;
-  }
-  fe_add<NW>(t, h, h, c);
-  fe_sqr<NW>(i, t, c);
-  fe_mul<NW>(j, h, i, c);
-  fe_add<NW>(r, r, r, c);
-  fe_mul<NW>(v, u1, i, c);
-  Fe<NW> x3, y3, z3;
-  fe_sqr<NW>(x3, r, c);
-  fe_sub<NW>(x3, x3, j, c);
-  fe_add<NW>(t, v, v, c);
-  fe_sub<NW>(x3, x3, t, c);
-  fe_sub<NW>(t, v, x3, c);
-  fe_mul<NW>(y3, r, t, c);
-  fe_mul<NW>(t, s1, j, c);
-  fe_add<NW>(t, t, t, c);
-  fe_sub<NW>(y3, y3, t, c);
-  fe_add<NW>(t, p.z, q.z, c);
-  fe_sqr<NW>(z3, t, c);
-  fe_sub<NW>(z3, z3, z1z1, c);
-  fe_sub<NW>(z3, z3, z2z2, c);
-  fe_mul<NW>(z3, z3, h, c);
-  o.x = x3;
-  o.y = y3;
-  o.z = z3;
-}
-
-template <int NW>
-__device__ __forceinline__ void load_pt(Pt<NW>& p, const int32_t* const* in, int64_t n, int64_t i) {
-  fe_load<NW>(p.x, in[0], n, i);
-  fe_load<NW>(p.y, in[1], n, i);
-  fe_load<NW>(p.z, in[2], n, i);
-}
-
-template <int NW>
-__device__ __forceinline__ void store_pt(const EcArgs& a, int64_t n, int64_t i, const Pt<NW>& o) {
-  fe_store<NW>(a.out[0], n, i, o.x);
-  fe_store<NW>(a.out[1], n, i, o.y);
-  fe_store<NW>(a.out[2], n, i, o.z);
-}
-
-template <int NW, int WHICH>
-__global__ void __launch_bounds__(128) k_ec(EcArgs a, int64_t n, FieldConsts c) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Pt<NW> p, o;
-  load_pt<NW>(p, a.in, n, i);
-  if (WHICH == DOUBLE) {
-    pt_double<NW>(o, p, c);
-  } else if (WHICH == ADD) {
-    Pt<NW> q;
-    load_pt<NW>(q, a.in + 3, n, i);
-    pt_add<NW>(o, p, q, c);
-  } else {
-    Fe<NW> x2, y2;
-    if (WHICH == MADD_PACKED || WHICH == MADD_DISTINCT_PACKED) {
-      fe_load_packed<NW>(x2, a.in[3], n, i, 0);
-      fe_load_packed<NW>(y2, a.in[3], n, i, NW);
-    } else {
-      fe_load<NW>(x2, a.in[3], n, i);
-      fe_load<NW>(y2, a.in[4], n, i);
-    }
-    constexpr bool complete = (WHICH == MADD || WHICH == MADD_PACKED);
-    pt_madd<NW, complete>(o, p, x2, y2, c);
-  }
-  store_pt<NW>(a, n, i, o);
-}
-
-template <int NW>
-int launch(int which, const EcArgs& a, int64_t n, const FieldConsts& c, cudaStream_t s) {
-  dim3 grid((unsigned)((n + 127) / 128));
-  switch (which) {
-    case MADD: k_ec<NW, MADD><<<grid, 128, 0, s>>>(a, n, c); break;
-    case MADD_DISTINCT: k_ec<NW, MADD_DISTINCT><<<grid, 128, 0, s>>>(a, n, c); break;
-    case MADD_PACKED: k_ec<NW, MADD_PACKED><<<grid, 128, 0, s>>>(a, n, c); break;
-    case MADD_DISTINCT_PACKED: k_ec<NW, MADD_DISTINCT_PACKED><<<grid, 128, 0, s>>>(a, n, c); break;
-    case ADD: k_ec<NW, ADD><<<grid, 128, 0, s>>>(a, n, c); break;
-    case DOUBLE: k_ec<NW, DOUBLE><<<grid, 128, 0, s>>>(a, n, c); break;
-    default: return -1;
-  }
-  return 0;
-}
-
-}  // namespace
+#include "ec_jac.cuh"
 
 // which: 0 madd, 1 madd_distinct, 2 madd_packed, 3 madd_distinct_packed,
 // 4 add, 5 double. ins/outs: host arrays of device pointers (6 and 3).
@@ -231,14 +19,12 @@ extern "C" int pc_ec_op(int which, int nw, void* const* ins, void* const* outs, 
   if (n < 0) return -1;
   if (n == 0) return 0;
   EcArgs a;
-  for (int k = 0; k < 6; ++k) a.in[k] = (const int32_t*)ins[k];
-  for (int k = 0; k < 3; ++k) a.out[k] = (int32_t*)outs[k];
   FieldConsts c;
-  std::memcpy(&c, consts, sizeof(c));
+  ec_args(a, c, ins, outs, consts);
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (nw == 12) rc = launch<12>(which, a, n, c, s);
-  else if (nw == 8) rc = launch<8>(which, a, n, c, s);
+  if (nw == 12) rc = ec_launch<Fp<12>>(which, a, n, c, s);
+  else if (nw == 8) rc = ec_launch<Fp<8>>(which, a, n, c, s);
   else return -1;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

@@ -1,0 +1,255 @@
+// Jacobian formulas on y^2 = x^3 + b (a = 0), generic over the coordinate
+// field: one thread per point, every temporary in registers. K2a
+// (ec_g1.cu) instantiates them over Fq, K2c (ec_g2.cu) over Fq2. They replace
+// the Weierstrass entries of poly_commit_tpu/core/ec_lf.py::_ec_fn
+// (madd-2007-bl, its distinct and packed variants, add-2007-bl made complete
+// by edge cases, dbl-2009-l) and compute what its formulas compute, with a
+// branch per thread where the Pallas kernel computes both sides and selects.
+//
+// A field policy F gives the element type F::E, its arithmetic (mul, sqr,
+// add, sub, is_zero, set_one, set_zero: the same operation sequence as the
+// port's plain versions, so results agree bit for bit), F::WORDS packed
+// 32-bit rows per coordinate, and load/store.
+#pragma once
+
+#include <cstring>
+
+#include "ff.cuh"
+
+struct EcArgs {
+  const int32_t* in[6];
+  int32_t* out[3];
+};
+
+enum Which { MADD = 0, MADD_DISTINCT = 1, MADD_PACKED = 2, MADD_DISTINCT_PACKED = 3, ADD = 4, DOUBLE = 5 };
+
+// The prime field itself: Fe<NW> with ff.cuh's arithmetic.
+template <int NW>
+struct Fp {
+  using E = Fe<NW>;
+  static constexpr int WORDS = NW;
+  static __device__ __forceinline__ void mul(E& r, const E& a, const E& b, const FieldConsts& c) {
+    fe_mul<NW>(r, a, b, c);
+  }
+  static __device__ __forceinline__ void sqr(E& r, const E& a, const FieldConsts& c) { fe_sqr<NW>(r, a, c); }
+  static __device__ __forceinline__ void add(E& r, const E& a, const E& b, const FieldConsts& c) {
+    fe_add<NW>(r, a, b, c);
+  }
+  static __device__ __forceinline__ void sub(E& r, const E& a, const E& b, const FieldConsts& c) {
+    fe_sub<NW>(r, a, b, c);
+  }
+  static __device__ __forceinline__ bool is_zero(const E& a, const FieldConsts& c) { return fe_is_zero<NW>(a, c); }
+  static __device__ __forceinline__ void set_one(E& r, const FieldConsts& c) { fe_set_one<NW>(r, c); }
+  static __device__ __forceinline__ void set_zero(E& r) { fe_set_zero<NW>(r); }
+  static __device__ __forceinline__ void load(E& r, const int32_t* base, int64_t n, int64_t i) {
+    fe_load<NW>(r, base, n, i);
+  }
+  static __device__ __forceinline__ void load_packed(E& r, const int32_t* base, int64_t n, int64_t i, int row0) {
+    fe_load_packed<NW>(r, base, n, i, row0);
+  }
+  static __device__ __forceinline__ void store(int32_t* base, int64_t n, int64_t i, const E& a) {
+    fe_store<NW>(base, n, i, a);
+  }
+};
+
+template <class F>
+struct Pt {
+  typename F::E x, y, z;
+};
+
+// dbl-2009-l (a = 0): 2M + 5S.
+template <class F>
+__device__ __forceinline__ void pt_double(Pt<F>& o, const Pt<F>& p, const FieldConsts& c) {
+  typename F::E a, b, cc, d, e, f, t;
+  F::sqr(a, p.x, c);
+  F::sqr(b, p.y, c);
+  F::sqr(cc, b, c);
+  F::add(t, p.x, b, c);
+  F::sqr(d, t, c);
+  F::sub(d, d, a, c);
+  F::sub(d, d, cc, c);
+  F::add(d, d, d, c);
+  F::add(e, a, a, c);
+  F::add(e, e, a, c);
+  F::sqr(f, e, c);
+  typename F::E x3, y3, z3;
+  F::add(t, d, d, c);
+  F::sub(x3, f, t, c);
+  F::sub(t, d, x3, c);
+  F::mul(y3, e, t, c);
+  F::add(cc, cc, cc, c);
+  F::add(cc, cc, cc, c);
+  F::add(cc, cc, cc, c);
+  F::sub(y3, y3, cc, c);
+  F::mul(z3, p.y, p.z, c);
+  F::add(z3, z3, z3, c);
+  o.x = x3;
+  o.y = y3;
+  o.z = z3;
+}
+
+template <class F>
+__device__ __forceinline__ void pt_infinity(Pt<F>& o, const FieldConsts& c) {
+  F::set_zero(o.x);
+  F::set_one(o.y, c);
+  F::set_zero(o.z);
+}
+
+// madd-2007-bl: Jacobian p + affine (x2, y2), 7M + 4S. With complete set,
+// p == q doubles and p == -q gives infinity; p at infinity gives q.
+template <class F, bool COMPLETE>
+__device__ __forceinline__ void pt_madd(Pt<F>& o, const Pt<F>& p, const typename F::E& x2,
+                                        const typename F::E& y2, const FieldConsts& c) {
+  if (F::is_zero(p.z, c)) {
+    o.x = x2;
+    o.y = y2;
+    F::set_one(o.z, c);
+    return;
+  }
+  typename F::E z1z1, u2, s2, h, hh, i, j, r, v, t;
+  F::sqr(z1z1, p.z, c);
+  F::mul(u2, x2, z1z1, c);
+  F::mul(s2, y2, p.z, c);
+  F::mul(s2, s2, z1z1, c);
+  F::sub(h, u2, p.x, c);
+  F::sub(r, s2, p.y, c);
+  if (COMPLETE && F::is_zero(h, c)) {
+    if (F::is_zero(r, c)) pt_double<F>(o, p, c);
+    else pt_infinity<F>(o, c);
+    return;
+  }
+  F::sqr(hh, h, c);
+  F::add(i, hh, hh, c);
+  F::add(i, i, i, c);
+  F::mul(j, h, i, c);
+  F::add(r, r, r, c);
+  F::mul(v, p.x, i, c);
+  typename F::E x3, y3, z3;
+  F::sqr(x3, r, c);
+  F::sub(x3, x3, j, c);
+  F::add(t, v, v, c);
+  F::sub(x3, x3, t, c);
+  F::sub(t, v, x3, c);
+  F::mul(y3, r, t, c);
+  F::mul(t, p.y, j, c);
+  F::add(t, t, t, c);
+  F::sub(y3, y3, t, c);
+  F::add(t, p.z, h, c);
+  F::sqr(z3, t, c);
+  F::sub(z3, z3, z1z1, c);
+  F::sub(z3, z3, hh, c);
+  o.x = x3;
+  o.y = y3;
+  o.z = z3;
+}
+
+// add-2007-bl: Jacobian p + q, 11M + 5S, complete.
+template <class F>
+__device__ __forceinline__ void pt_add(Pt<F>& o, const Pt<F>& p, const Pt<F>& q, const FieldConsts& c) {
+  if (F::is_zero(p.z, c)) {
+    o = q;
+    return;
+  }
+  if (F::is_zero(q.z, c)) {
+    o = p;
+    return;
+  }
+  typename F::E z1z1, z2z2, u1, u2, s1, s2, h, i, j, r, v, t;
+  F::sqr(z1z1, p.z, c);
+  F::sqr(z2z2, q.z, c);
+  F::mul(u1, p.x, z2z2, c);
+  F::mul(u2, q.x, z1z1, c);
+  F::mul(s1, p.y, q.z, c);
+  F::mul(s1, s1, z2z2, c);
+  F::mul(s2, q.y, p.z, c);
+  F::mul(s2, s2, z1z1, c);
+  F::sub(h, u2, u1, c);
+  F::sub(r, s2, s1, c);
+  if (F::is_zero(h, c)) {
+    if (F::is_zero(r, c)) pt_double<F>(o, p, c);
+    else pt_infinity<F>(o, c);
+    return;
+  }
+  F::add(t, h, h, c);
+  F::sqr(i, t, c);
+  F::mul(j, h, i, c);
+  F::add(r, r, r, c);
+  F::mul(v, u1, i, c);
+  typename F::E x3, y3, z3;
+  F::sqr(x3, r, c);
+  F::sub(x3, x3, j, c);
+  F::add(t, v, v, c);
+  F::sub(x3, x3, t, c);
+  F::sub(t, v, x3, c);
+  F::mul(y3, r, t, c);
+  F::mul(t, s1, j, c);
+  F::add(t, t, t, c);
+  F::sub(y3, y3, t, c);
+  F::add(t, p.z, q.z, c);
+  F::sqr(z3, t, c);
+  F::sub(z3, z3, z1z1, c);
+  F::sub(z3, z3, z2z2, c);
+  F::mul(z3, z3, h, c);
+  o.x = x3;
+  o.y = y3;
+  o.z = z3;
+}
+
+template <class F>
+__device__ __forceinline__ void load_pt(Pt<F>& p, const int32_t* const* in, int64_t n, int64_t i) {
+  F::load(p.x, in[0], n, i);
+  F::load(p.y, in[1], n, i);
+  F::load(p.z, in[2], n, i);
+}
+
+template <class F, int WHICH>
+__global__ void __launch_bounds__(128) k_ec(EcArgs a, int64_t n, FieldConsts c) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt<F> p, o;
+  load_pt<F>(p, a.in, n, i);
+  if (WHICH == DOUBLE) {
+    pt_double<F>(o, p, c);
+  } else if (WHICH == ADD) {
+    Pt<F> q;
+    load_pt<F>(q, a.in + 3, n, i);
+    pt_add<F>(o, p, q, c);
+  } else {
+    typename F::E x2, y2;
+    if (WHICH == MADD_PACKED || WHICH == MADD_DISTINCT_PACKED) {
+      F::load_packed(x2, a.in[3], n, i, 0);
+      F::load_packed(y2, a.in[3], n, i, F::WORDS);
+    } else {
+      F::load(x2, a.in[3], n, i);
+      F::load(y2, a.in[4], n, i);
+    }
+    constexpr bool complete = (WHICH == MADD || WHICH == MADD_PACKED);
+    pt_madd<F, complete>(o, p, x2, y2, c);
+  }
+  F::store(a.out[0], n, i, o.x);
+  F::store(a.out[1], n, i, o.y);
+  F::store(a.out[2], n, i, o.z);
+}
+
+// Launches formula ``which`` over n points; -1 for an unknown formula.
+template <class F>
+int ec_launch(int which, const EcArgs& a, int64_t n, const FieldConsts& c, cudaStream_t s) {
+  dim3 grid((unsigned)((n + 127) / 128));
+  switch (which) {
+    case MADD: k_ec<F, MADD><<<grid, 128, 0, s>>>(a, n, c); break;
+    case MADD_DISTINCT: k_ec<F, MADD_DISTINCT><<<grid, 128, 0, s>>>(a, n, c); break;
+    case MADD_PACKED: k_ec<F, MADD_PACKED><<<grid, 128, 0, s>>>(a, n, c); break;
+    case MADD_DISTINCT_PACKED: k_ec<F, MADD_DISTINCT_PACKED><<<grid, 128, 0, s>>>(a, n, c); break;
+    case ADD: k_ec<F, ADD><<<grid, 128, 0, s>>>(a, n, c); break;
+    case DOUBLE: k_ec<F, DOUBLE><<<grid, 128, 0, s>>>(a, n, c); break;
+    default: return -1;
+  }
+  return 0;
+}
+
+// The host side of every pc_*_op entry: the pointer arrays and the constants.
+inline void ec_args(EcArgs& a, FieldConsts& c, void* const* ins, void* const* outs, const uint32_t* consts) {
+  for (int k = 0; k < 6; ++k) a.in[k] = (const int32_t*)ins[k];
+  for (int k = 0; k < 3; ++k) a.out[k] = (int32_t*)outs[k];
+  std::memcpy(&c, consts, sizeof(c));
+}

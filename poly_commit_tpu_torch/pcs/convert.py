@@ -11,6 +11,9 @@ commit against the very same SRS.
 ``ligero_params_from_jax`` and ``lincode_state_from_jax`` carry Ligero
 parameters and a commitment's prover state across (read by attribute), so
 the port can open what the JAX package committed.
+``multilinear_params_from_jax`` and ``ipa_params_from_jax`` do the same for
+MultilinearPC's and IPA-PC's universal parameters: device points keep their
+limbs (G2 as (N, 2, L) pairs), host points stay host ints.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from .. import device as D
 from ..core import ff
 from ..core import field_params as FP
-from . import kzg10
+from . import ipa_pc, kzg10, multilinear_pc
 from .curve_ctx import CTX_BLS12_381, CurveCtx
 from .linear_codes.engine import LinCodePCCommitmentState
 from .linear_codes.ligero import LigeroPCParams
@@ -80,3 +83,44 @@ def lincode_state_from_jax(st, device=None) -> LinCodePCCommitmentState:
 
     return LinCodePCCommitmentState(mat=limbs(st.mat), ext_mat=limbs(st.ext_mat),
                                     leaves=[bytes(leaf) for leaf in st.leaves])
+
+
+def _affine(t, device):
+    """A device affine batch (x, y, inf) from any arrays numpy reads
+    (uint32 Montgomery limbs, G2 as (N, 2, L)) -> int32 tensors."""
+    x, y, inf = (np.asarray(a) for a in t)
+
+    def limbs(a):
+        return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(device)
+
+    return limbs(x), limbs(y), torch.from_numpy(inf.astype(bool)).to(device)
+
+
+def _host(t):
+    """A host triple with numpy scalars -> Python ints and bool."""
+    def conv(v):
+        return tuple(int(c) for c in v) if isinstance(v, (tuple, list)) else int(v)
+
+    return (conv(t[0]), conv(t[1]), bool(t[2]))
+
+
+def multilinear_params_from_jax(pp, device=None) -> multilinear_pc.UniversalParams:
+    """A JAX MultilinearPC ``UniversalParams`` (read by attribute) -> the
+    port's: per-level G1 and G2 powers as device tensors with the same
+    limbs, g, h and g_mask as host triples."""
+    dev = D.resolve(device)
+    return multilinear_pc.UniversalParams(
+        num_vars=int(pp.num_vars), g=_host(pp.g), h=_host(pp.h),
+        g_mask=[_host(t) for t in pp.g_mask],
+        powers_of_g=[_affine(t, dev) for t in pp.powers_of_g],
+        powers_of_h=[_affine(t, dev) for t in pp.powers_of_h])
+
+
+def ipa_params_from_jax(pp, device=None) -> ipa_pc.UniversalParams:
+    """A JAX IPA-PC ``UniversalParams`` (read by attribute) -> the port's:
+    the Pedersen key on the device, h and s as host points."""
+    def pt(v):
+        return (int(v[0]), int(v[1]))
+
+    return ipa_pc.UniversalParams(comm_key=_affine(pp.comm_key, D.resolve(device)),
+                                  h=pt(pp.h), s=pt(pp.s), max_degree=int(pp.max_degree))

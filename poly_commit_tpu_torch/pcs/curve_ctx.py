@@ -4,7 +4,7 @@
 Counterpart of poly_commit_tpu/pcs/curve_ctx.py. The reference instantiates
 every pairing scheme over BLS12-377 and BLS12-381 through generics over
 `Pairing` (marlin_pc/mod.rs:531-815); here a small context object carries
-the device G1 group, the host G2 parameters, the scalar field, host mirrors
+the device G1 group, the G2 group, the scalar field, host mirrors
 and the host pairing engines. The pairing runs on the host, as it does in
 the JAX package off the TPU.
 """
@@ -24,7 +24,7 @@ from ..core.field_params import FieldSpec
 class CurveCtx:
     name: str
     g1: C.WeierstrassGroup  # device group
-    g2: C.G2Params  # host group
+    g2: C.G2Group  # its generator; Marlin keeps h and beta_h on the host
     spec: FieldSpec  # scalar field Fr
 
     @functools.cached_property

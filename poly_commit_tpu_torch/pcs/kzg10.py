@@ -8,10 +8,10 @@ kzg10/mod.rs):
   check        mod.rs:314-333  host point algebra + host pairing
   batch_check  mod.rs:337-391  RLC of the openings: two device MSMs
 
-The verifier key's G2 points h and beta_h are host int triples (G2 has no
-device kernels yet); single-point multiplications in setup and the
-verifier's O(1) algebra run on host ints. Every batched operation runs on
-the device of the key's tensors.
+The verifier key's G2 points h and beta_h are host int triples (two
+points: moving them to the device G2 group is still to do); single-point
+multiplications in setup and the verifier's O(1) algebra run on host ints.
+Every batched operation runs on the device of the key's tensors.
 """
 
 from __future__ import annotations
@@ -285,3 +285,9 @@ def _vk_host(vk, name: str, ctx: CurveCtx = CTX_BLS12_381):
         x, y, inf = getattr(vk, name)
         cache[name] = device_point_to_ints(ctx.g1, ctx.g1.from_affine(x, y, inf))
     return cache[name]
+
+
+def pairing_product_is_one_host(g1_triples, g2_triples, ctx: CurveCtx = CTX_BLS12_381) -> bool:
+    """prod e(P_i, Q_i) == 1 from host int triples, by the host pairing
+    engine (the JAX package's host branch of the same name)."""
+    return ctx.pairing_product_is_one(g1_triples, g2_triples)

@@ -23,6 +23,7 @@ from poly_commit_tpu_torch.core import ec_lf as ec  # noqa: E402
 from poly_commit_tpu_torch.core import ff  # noqa: E402
 from poly_commit_tpu_torch.core import field_params as FP  # noqa: E402
 from tests.ref_ec import Fp, RefWeierstrass  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 CURVES = {
     "bls12_381": (FP.FQ_BLS12_381, FP.BLS12_381_B, (FP.BLS12_381_G1_X, FP.BLS12_381_G1_Y)),

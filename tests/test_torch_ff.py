@@ -19,6 +19,7 @@ from poly_commit_tpu.core import ff as jff  # noqa: E402
 from poly_commit_tpu.core import field as jfield  # noqa: E402
 from poly_commit_tpu_torch.core import ff, field  # noqa: E402
 from poly_commit_tpu_torch.core import field_params as FP  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 SPECS = {"fq381": FP.FQ_BLS12_381, "fq377": FP.FQ_BLS12_377, "fr381": FP.FR_BLS12_381}
 

@@ -86,6 +86,78 @@ def test_ec_kernel_matches_plain(cuda, which, group):
         assert torch.equal(ff.canonicalize(spec, g)[:, lanes], ff.canonicalize(spec, w)[:, lanes])
 
 
+def _to(x, dev):
+    """A tensor, or nested tuples of them, on ``dev``."""
+    return tuple(_to(t, dev) for t in x) if isinstance(x, (tuple, list)) else x.to(dev)
+
+
+def _g2_edge_case(spec, n, seed):
+    """Random lazy Fq2 coordinates (2L, n) for P (Jacobian) and Q, with edge
+    lanes: 0 P at infinity, 1 P == Q, 2 P == -Q (both with z = 1), 3 Q at
+    infinity (for add)."""
+    L = spec.n_limbs
+
+    def fq2(s):
+        return torch.cat([_field(spec, n, s), _field(spec, n, s + 1000)], 0)
+
+    x1, y1, z1, x2, y2 = (fq2(seed + 10 * k) for k in range(5))
+    z2 = fq2(seed + 50)
+    one = ec_lf.fq2_one(spec, 1, "cpu")[:, 0]
+    z1[:, 0] = 0
+    z2[:, 3] = 0
+    for lane in (1, 2):
+        z1[:, lane], z2[:, lane] = one, one
+        x2[:, lane] = x1[:, lane]
+    y2[:, 1] = y1[:, 1]
+    zero = torch.zeros_like(y1[:L, 2:3])
+    y2[:, 2:3] = torch.cat([ff.plain("sub", spec, zero, y1[:L, 2:3].contiguous()),
+                            ff.plain("sub", spec, zero, y1[L:, 2:3].contiguous())], 0)
+    return (x1, y1, z1), (x2, y2, z2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FQ_BLS12_381, FP.FQ_BLS12_377, FP.FQ_BN254], ids=lambda s: s.name)
+@pytest.mark.parametrize("which", FORMULAS)
+def test_g2_kernel_matches_plain(cuda, which, spec):
+    """K2c against its plain version, bit for bit, edge lanes included."""
+    P, Q = _g2_edge_case(spec, 1000, 7)
+    args = {"double": (), "add": (Q,), "madd_packed": (ec_lf.pack(Q[0], Q[1]),),
+            "madd_distinct_packed": (ec_lf.pack(Q[0], Q[1]),)}
+    a = args.get(which, Q[:2])
+    flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
+    got = getattr(ec_lf, f"g2_{which}")(spec, _to(P, cuda), *_to(a, cuda))
+    torch.cuda.synchronize()
+    want = ec_lf.plain(f"g2_{which}", spec, *P, *flat)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["ed_madd", "ed_madd_packed", "ed_add", "ed_double"])
+def test_edwards_kernel_matches_plain(cuda, which):
+    """K2b against its plain version, bit for bit; lane 0 of P and lane 1
+    of Q are the identity, lane 2 adds P to -P."""
+    spec = FP.JUBJUB_FQ
+    n = 1000
+    P = [_field(spec, n, 20 + k) for k in range(4)]
+    Q = [_field(spec, n, 30 + k) for k in range(4)]
+    ident = ec_lf.ed_infinity(spec, 1, "cpu")
+    for k in range(4):
+        P[k][:, 0] = ident[k][:, 0]
+        Q[k][:, 1] = ident[k][:, 0]
+    neg = ec_lf.ed_neg(spec, tuple(t[:, 2:3].contiguous() for t in P))
+    for k in range(4):
+        Q[k][:, 2] = neg[k][:, 0]
+    args = {"ed_madd": Q[:2], "ed_madd_packed": [ec_lf.pack(Q[0], Q[1])], "ed_add": [tuple(Q)],
+            "ed_double": []}[which]
+    got = getattr(ec_lf, which)(spec, _to(tuple(P), cuda), *_to(tuple(args), cuda))
+    torch.cuda.synchronize()
+    args = [t for x in args for t in (x if isinstance(x, tuple) else (x,))]
+    want = ec_lf.plain(which, spec, *P, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.gpu
 def test_digit_sort_kernel_matches_plain(cuda):
     keys = torch.randint(0, SENTINEL + 1, (16, 1 << 16), dtype=torch.int32, device=cuda)
@@ -113,6 +185,50 @@ def test_msm_on_card_matches_host(cuda, distinct, n):
                   curve.affine_from_ints(group, [(x, y, False) for x, y in pts], cuda),
                   assume_distinct=distinct)
     assert hostec.device_proj_to_host(group, out) == hostec.host_group(group).msm_fast(scal, pts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [curve.BLS12_381_G2, curve.BLS12_377_G2, curve.JUBJUB],
+                         ids=lambda g: g.name)
+@pytest.mark.parametrize("n", [2, 300])  # windows c = 4 and c = 8
+@pytest.mark.parametrize("distinct", [True, False])
+def test_g2_and_jubjub_msm_on_card_match_host(cuda, group, n, distinct):
+    """K2c (G2) and K2b (JubJub) MSMs on the card against the host group
+    law; with distinct=False a base repeats, so the complete forms meet P == Q."""
+    hg = hostec.host_group(group)
+    rnd = random.Random(n)
+    gen = (group.gen_x, group.gen_y)
+    pts = [hg.mul_fast(gen, rnd.randrange(1, 1 << 64))]
+    step = hg.mul_fast(gen, rnd.randrange(1, 1 << 64))
+    for _ in range(n - 1):
+        pts.append(hg.add(pts[-1], step))
+    if not distinct:
+        pts[-1] = pts[0]
+    scal = [rnd.randrange(group.scalar_spec.modulus) for _ in range(n)]
+    out = msm.msm(group, msm.scalars_from_ints(group.scalar_spec, scal, cuda),
+                  curve.affine_from_ints(group, [(x, y, False) for x, y in pts], cuda),
+                  assume_distinct=distinct and group is not curve.JUBJUB)
+    assert hostec.device_proj_to_host(group, out) == hg.msm_fast(scal, pts)
+
+
+@pytest.mark.gpu
+def test_g2_fixed_base_and_jubjub_scalar_mul_on_card(cuda):
+    hg2 = hostec.host_group(curve.BLS12_381_G2)
+    g2 = curve.BLS12_381_G2
+    rnd = random.Random(9)
+    scal = [0, 1] + [rnd.randrange(g2.scalar_spec.modulus) for _ in range(300)]
+    out = msm.fixed_base_mul(g2, g2.generator(cuda), msm.scalars_from_ints(g2.scalar_spec, scal, cuda))
+    x, y, inf = g2.to_affine(out)
+    got = [None if i else (tuple(F.to_ints(g2.spec, a)), tuple(F.to_ints(g2.spec, b)))
+           for a, b, i in zip(x, y, inf.tolist())]
+    assert got == [hg2.mul_fast(g2.generator_host(), s) if s else None for s in scal]
+    jj, hj = curve.JUBJUB, hostec.host_group(curve.JUBJUB)
+    pts = [hj.mul_fast((jj.gen_x, jj.gen_y), rnd.randrange(1, 1 << 64)) for _ in range(100)]
+    k = rnd.randrange(jj.scalar_spec.modulus)
+    p = jj.from_affine(F.from_ints(jj.spec, [q[0] for q in pts], device=cuda),
+                       F.from_ints(jj.spec, [q[1] for q in pts], device=cuda))
+    ax, ay, _ = jj.to_affine(jj.scalar_mul(p, k))
+    assert list(zip(F.to_ints(jj.spec, ax), F.to_ints(jj.spec, ay))) == [hj.mul_fast(q, k) for q in pts]
 
 
 @pytest.mark.gpu

@@ -20,6 +20,7 @@ import poly_commit_tpu_torch.pcs.data_structures as tDS  # noqa: E402
 import poly_commit_tpu_torch.pcs.marlin_pc as tM  # noqa: E402
 from poly_commit_tpu_torch.pcs import kzg10  # noqa: E402
 from tests.test_torch_marlin import JAX, PORT, _comm_points, _proof_points, _round_trip, _setup  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 
 def test_degree_bounds_match_jax():

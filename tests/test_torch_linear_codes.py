@@ -43,6 +43,7 @@ from poly_commit_tpu_torch.pcs import errors as terrors  # noqa: E402
 from poly_commit_tpu_torch.pcs.linear_codes import engine as tE  # noqa: E402
 from poly_commit_tpu_torch.pcs.linear_codes.ligero import LigeroPCParams, _rs_encode_rows  # noqa: E402
 from poly_commit_tpu_torch.utils.merkle import MerkleTree, verify_path  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 JAX = types.SimpleNamespace(F=jF, DS=jDS, T=jT, dev={}, PC={
     "univariate": jLC.UnivariateLigero, "multilinear": jLC.MultilinearLigero,

@@ -30,6 +30,7 @@ import poly_commit_tpu_torch.core.transcript as tT  # noqa: E402
 import poly_commit_tpu_torch.pcs.data_structures as tDS  # noqa: E402
 import poly_commit_tpu_torch.pcs.marlin_pc as tM  # noqa: E402
 from poly_commit_tpu_torch.pcs import convert  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 JAX = types.SimpleNamespace(F=jF, DS=jDS, T=jT, dev={},
                             PC={"bls12_381": jM.MarlinKZG10, "bls12_377": jM.MarlinKZG10_BLS12_377})

@@ -20,6 +20,7 @@ from poly_commit_tpu.core import hostec as jhostec  # noqa: E402
 from poly_commit_tpu.core import msm as jmsm  # noqa: E402
 from poly_commit_tpu_torch.core import curve, ff, hostec, msm, msm_gpu  # noqa: E402
 from tests.ref_ec import Fp, RefWeierstrass  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 GROUPS = {
     "bls12_381": (curve.BLS12_381_G1, jcurve.BLS12_381_G1),

@@ -29,6 +29,7 @@ from poly_commit_tpu_torch.core import ff, ntt_lf  # noqa: E402
 from poly_commit_tpu_torch.core import field as F  # noqa: E402
 from poly_commit_tpu_torch.core import ntt as NTT  # noqa: E402
 from poly_commit_tpu_torch.core.field_params import FR_BLS12_381, FR_BN254, FQ_BLS12_381  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 SPECS = {"fr_bls12_381": (FR_BLS12_381, J381), "fr_bn254": (FR_BN254, J254)}
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from poly_commit_tpu.core import sort_tpu  # noqa: E402
 from poly_commit_tpu_torch.core import sort_gpu  # noqa: E402
+pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 SENTINEL = 1 << 16
 
