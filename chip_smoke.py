@@ -9,11 +9,14 @@ Phases, one JSON line each (times in ms):
      (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the same inputs on
      the card, exactly (K1 ff mul/add/sub on the BLS12-381 base and scalar
-     fields, the BN254 scalar field and the BLS12-377 base field; K2a the six
-     G1 formulas; K3 the digit sort; K4a/K4b/K4c the NTT stages on the BN254
-     and BLS12-381 scalar fields), with the kernel's, the plain version's
-     and, where one PyTorch call computes the same function, that call's
-     time;
+     fields, the BN254 scalar field and the BLS12-377 base field; K1's
+     power, the Fermat chain of every batched inversion, on the BLS12-381
+     base and scalar fields at 1 and 2^12 columns, and one batch_inv's
+     launches; K2a the six G1 formulas; K3, the stable digit sort, index
+     for index at the 2^20 MSM's (16, 2^20) keys and the c = 8 MSMs'
+     (32, 2^15); K4a/K4b/K4c the NTT stages on the BN254 and BLS12-381
+     scalar fields), with the kernel's, the plain version's and, where one
+     PyTorch call computes the same function, that call's time;
   3. a 2^12-point MSM against the host big-int oracle;
   4. the main path: MarlinKZG10 over BLS12-381 setup(2^20 - 1) -> trim ->
      commit (hiding) -> batch_open -> batch_check, the opened value checked
@@ -39,7 +42,9 @@ Phase 2 also holds K2c (the six G2 formulas on the BLS12-381 and BLS12-377
 Fq2) and K2b (the four JubJub formulas) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
 Phases 4-8 are the paths: each runs with every launch count set to 0 just
-before it and read just after; the kernel table sums them.
+before it and read just after; the kernel table sums them. Each path's
+line also splits K1's launches by columns (1, under 2^16, 2^16 and up),
+and a k1_launches line sums that split over the paths.
 Then the kernel table, the nvidia-smi line, and {"ok": true, "device": ...}.
 Any failure exits non-zero; so does a machine without a CUDA device.
 """
@@ -55,7 +60,6 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 IMAD_PER_SM_PER_CLK = 64  # 32-bit integer multiply-add, compute capability 9.0
-SENTINEL = 1 << 16
 LOG_DEGREE = 20  # the main path's degree is 2^20 - 1
 LIGERO_NUM_VARS = 22  # the top of the reference's Ligero bench (ligero_ml_times.rs)
 NTT_LOG_N = 22
@@ -134,10 +138,10 @@ def spans(targets):
 
 
 class Smoke:
-    # K1 builds the main path runs: the base field's mul (normalisation) and
-    # sub (point negation), the scalar field's mul and add (from_mont,
-    # evaluation, division)
-    MAIN_PATH_FF = ("ff_mont_mul[fq_bls12_381]", "ff_sub[fq_bls12_381]",
+    # K1 builds the main path runs: the base field's mul and pow
+    # (normalisation) and sub (point negation), the scalar field's mul and
+    # add (from_mont, evaluation, division)
+    MAIN_PATH_FF = ("ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]", "ff_sub[fq_bls12_381]",
                     "ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")
     # and those the Ligero paths run: the BN254 scalar field's mul, add and
     # sub (tensors, folds, v = b^T M, column bytes) for MultilinearLigero,
@@ -159,21 +163,28 @@ class Smoke:
         self.gen.manual_seed(20261016)
         self.kernels = {}  # name -> JSON entry
         self.totals = {}  # name -> launches summed over the driven paths
+        self.size_totals = {}  # K1 wrapper -> launches by columns, summed over the paths
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
+        self.ff_wrappers = {**{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
+                            "ff_pow": ff.mont_pow}
         self.wrappers = {
-            **{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
+            **self.ff_wrappers,
             **{f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS + ec_lf.G2_WRAPPERS + ec_lf.ED_WRAPPERS},
             "digit_sort": sort_gpu.digit_sort,
             **{f"ntt_{w.__name__}": w for w in ntt_lf.WRAPPERS},
         }
         ntt_src = "poly_commit_tpu_torch/csrc/ntt.cu"
         self.sources = {"ff": "poly_commit_tpu_torch/csrc/ff.cu",
+                        "pow": "poly_commit_tpu_torch/csrc/ff.cu",
                         "ec": "poly_commit_tpu_torch/csrc/ec_g1.cu",
                         "g2": "poly_commit_tpu_torch/csrc/ec_g2.cu",
                         "ed": "poly_commit_tpu_torch/csrc/ec_ed.cu",
                         "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu",
                         "k4a": ntt_src, "k4b": ntt_src, "k4c": ntt_src}
+        # the power: _ff_inv's lax.scan (poly_commit_tpu/core/msm_tpu.py:850)
+        # runs the TPU's K1 once a product
         self.replaces = {"ff": "poly_commit_tpu/core/ff.py:293",
+                         "pow": "poly_commit_tpu/core/ff.py:293",
                          "ec": "poly_commit_tpu/core/ec_lf.py:455",
                          "g2": "poly_commit_tpu/core/ec_lf.py:455",
                          "ed": "poly_commit_tpu/core/ec_lf.py:455",
@@ -186,17 +197,24 @@ class Smoke:
     def reset_counts(self):
         for w in self.wrappers.values():
             w.launches = 0
-        for w in self.ff_ops.values():
+        for w in self.ff_wrappers.values():
             w.launches_by_field.clear()
+            w.launches_by_size.update(dict.fromkeys(w.launches_by_size, 0))
 
     def read_counts(self):
-        """(launches per wrapper, launches per K1 build), added to the totals."""
+        """(launches per wrapper, launches per K1 build, K1 launches per
+        wrapper by columns: 1, under 2^16, 2^16 and up), added to the totals."""
         launches = {name: w.launches for name, w in self.wrappers.items()}
-        by_field = {f"ff_{w.__name__}[{f}]": count for w in self.ff_ops.values()
+        by_field = {f"{name}[{f}]": count for name, w in self.ff_wrappers.items()
                     for f, count in w.launches_by_field.items()}
+        by_size = {name: dict(w.launches_by_size) for name, w in self.ff_wrappers.items()}
         for name, count in {**launches, **by_field}.items():
             self.totals[name] = self.totals.get(name, 0) + count
-        return launches, by_field
+        for name, sizes in by_size.items():
+            into = self.size_totals.setdefault(name, dict.fromkeys(sizes, 0))
+            for size, count in sizes.items():
+                into[size] += count
+        return launches, by_field, by_size
 
     def all_launched(self, launches, by_field, needed):
         """Every kernel in ``needed`` ran in this path, and every K1 build
@@ -307,6 +325,75 @@ class Smoke:
                     emit(line)
                     continue
                 emit({**line, **self.entry(name, "ff", err, ms, plain_ms, n_bytes, n_imad)})
+        return ok
+
+    POW_COLUMNS = (1, 1 << 12)  # a product-tree root (the paths' shape), and a batch
+
+    @staticmethod
+    def mul_chain(spec, a, e):
+        """a^e as the port computed it before ``ff.mont_pow``: square and
+        multiply, MSB first, one K1 mul launch a product."""
+        from poly_commit_tpu_torch.core import ff
+
+        acc = ff.one_mont(spec, a.shape[1], a.device)
+        for bit in bin(e)[2:]:
+            acc = ff.mont_mul(spec, acc, acc)
+            if bit == "1":
+                acc = ff.mont_mul(spec, acc, a)
+        return acc
+
+    def check_ff_pow(self):
+        """K1's power kernel against its plain version, limb for limb, on
+        the Fermat exponent p - 2 of the two fields whose inversions the
+        paths run (Fq-381: G1 and Fq2 normalisation; Fr-381: JubJub), at
+        the paths' one column (the table entry) and at 2^12, timed beside
+        the chain of mul launches it replaced (``chain_ms``, equal limb for
+        limb); then one batch_inv of 2^12 columns makes one pow launch and
+        only its product tree's mul launches."""
+        from poly_commit_tpu_torch.core import ff, msm_gpu
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        ok = True
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381):
+            e = spec.modulus - 2
+            products = e.bit_length() + bin(e).count("1")
+            nw = spec.n_limbs // 2
+            for m in self.POW_COLUMNS:
+                a = self.lazy(spec, m)
+                if m > 1:
+                    a[:, 0] = 0  # a zero column
+                got = ff.mont_pow(spec, a, e)
+                want = ff.plain_pow(spec, a, e)
+                err = int((got.long() - want.long()).abs().max())
+                chain_err = int((self.mul_chain(spec, a, e).long() - want.long()).abs().max())
+                ok &= err == 0 and chain_err == 0
+                ms = time_ms(lambda: ff.mont_pow(spec, a, e), 10)
+                chain_ms = time_ms(lambda: self.mul_chain(spec, a, e), 5)
+                plain_ms = time_ms(lambda: ff.plain_pow(spec, a, e), 1)
+                # one column read and written; ~1.5 log2 p dependent products each
+                n_bytes = 2 * spec.n_limbs * 4 * m
+                n_imad = products * (4 * nw * nw + nw) * m
+                name = f"ff_pow[{spec.name}]"
+                line = {"phase": "kernels", "kernel": name, "m": m, "products": products,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "chain_max_abs_err": chain_err, "chain_ms": chain_ms}
+                if m != 1:
+                    emit({**line, **self.bound(n_bytes, n_imad)})
+                    continue
+                emit({**line, **self.entry(name, "pow", err, ms, plain_ms, n_bytes, n_imad)})
+            x = self.lazy(spec, self.POW_COLUMNS[-1])
+            pows, muls = ff.mont_pow.launches, ff.mont_mul.launches
+            inv = msm_gpu.batch_inv(spec, x)
+            launches = {"pow": ff.mont_pow.launches - pows, "mul": ff.mont_mul.launches - muls}
+            # x * x^-1 == 1 in every column (random columns are nonzero)
+            one = ff.canonicalize(spec, ff.mont_mul(spec, x, inv))
+            inverted = bool((one == ff.one_mont(spec, 1, self.dev)).all())
+            levels = self.POW_COLUMNS[-1].bit_length() - 1
+            tree_only = launches == {"pow": 1, "mul": 3 * levels}
+            ok &= inverted and tree_only
+            emit({"phase": "kernels", "check": "batch_inv", "field": spec.name,
+                  "m": self.POW_COLUMNS[-1], "launches": launches, "inverted": inverted,
+                  "one_pow_and_the_tree_only": tree_only})
         return ok
 
     def host_points(self, group, n, seed):
@@ -513,30 +600,46 @@ class Smoke:
                   "ms": ms, "plain_ms": plain_ms, **self.bound(n_bytes, n_imad)})
         return ok
 
+    # (windows, points, c): the 2^20 MSM's keys (the table entry), and the
+    # c = 8 MSMs of IPA-PC and MultilinearPC
+    SORT_SHAPES = ((16, 1 << 20, 16), (32, 1 << 15, 8))
+
     def check_sort(self):
+        """K3 against its stable plain version, index for index (order,
+        sorted keys and tails), with a tenth of the keys the sentinel
+        (padding and infinity); timed beside torch.sort. ``launch_ms`` is
+        the launches without the wrapper's one read of the range count."""
         from poly_commit_tpu_torch.core import sort_gpu
 
         torch = self.torch
-        w, n = 16, 1 << 20  # the MSM's (windows, points) at degree 2^20
-        keys = torch.randint(0, SENTINEL, (w, n), generator=self.gen, device=self.dev, dtype=torch.int32)
-        share = torch.rand((w, n), generator=self.gen, device=self.dev) < 0.1
-        keys = torch.where(share, torch.full_like(keys, SENTINEL), keys)  # padding / infinity
-        order, sk, incl = sort_gpu.digit_sort(keys, SENTINEL)
-        p_order, p_sk, p_incl = sort_gpu.plain(keys, SENTINEL)
-        perm = torch.equal(torch.sort(order.long(), dim=1).values,
-                           torch.arange(n, device=self.dev).expand(w, n))
-        gathered = torch.equal(torch.gather(keys, 1, order.long()), sk)
-        err = int((sk.long() - p_sk.long()).abs().max())
-        err = max(err, int((incl.long() - p_incl.long()).abs().max()))
-        ok = perm and gathered and err == 0
-        ms = time_ms(lambda: sort_gpu.digit_sort(keys, SENTINEL), 10)
-        plain_ms = time_ms(lambda: sort_gpu.plain(keys, SENTINEL), 1)
-        library_ms = time_ms(lambda: torch.sort(keys, dim=1), 10)
-        n_bytes = 3 * w * n * 4 + w * (SENTINEL + 1) * 4
-        bounds = self.entry("digit_sort", "digit", err, ms, plain_ms, n_bytes, 0, library_ms, limbs=False)
-        emit({"phase": "kernels", "kernel": "digit_sort", "shape": [w, n], "permutation": perm,
-              "keys_match": gathered, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bounds["bound_ms"]})
+        ok = True
+        for w, n, c in self.SORT_SHAPES:
+            sentinel = 1 << c
+            keys = torch.randint(0, sentinel, (w, n), generator=self.gen, device=self.dev,
+                                 dtype=torch.int32)
+            share = torch.rand((w, n), generator=self.gen, device=self.dev) < 0.1
+            keys = torch.where(share, torch.full_like(keys, sentinel), keys)
+            got = sort_gpu.digit_sort(keys, sentinel)
+            want = sort_gpu.plain(keys, sentinel)
+            err = max(int((g.long() - p.long()).abs().max()) for g, p in zip(got, want))
+            ok &= err == 0
+            ms = time_ms(lambda: sort_gpu.digit_sort(keys, sentinel), 20)
+            launch_ms = time_ms(lambda: sort_gpu._launch(keys, sentinel), 20)
+            plain_ms = time_ms(lambda: sort_gpu.plain(keys, sentinel), 1)
+            library_ms = time_ms(lambda: torch.sort(keys, dim=1), 20)
+            stable_ms = time_ms(lambda: torch.sort(keys, dim=1, stable=True), 20)
+            # keys read, order and sorted keys written, the tails written
+            n_bytes = 3 * w * n * 4 + w * (sentinel + 1) * 4
+            line = {"phase": "kernels", "kernel": "digit_sort", "shape": [w, n], "c": c,
+                    "passes": len(sort_gpu.radix_plan(sentinel)), "max_abs_err": err, "ms": ms,
+                    "launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library_stable_ms": stable_ms, "faster_than_library": ms < library_ms}
+            if c == 16:
+                line.update(self.entry("digit_sort", "digit", err, ms, plain_ms, n_bytes, 0,
+                                       library_ms, limbs=False))
+            else:
+                line["bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+            emit(line)
         return ok
 
     def check_ntt_kernels(self):
@@ -689,7 +792,7 @@ class Smoke:
         bad = {k: (v + 1) % spec.modulus for k, v in values.items()}
         rejected = not stage("check_tampered", lambda: PC.batch_check(
             vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
-        launches, ff_by_field = self.read_counts()
+        launches, ff_by_field, ff_by_size = self.read_counts()
 
         # the check stage apart, on this run's commitment and proof: its two
         # MSMs (2 points and 1, complete mixed add) and the pairing of two G1
@@ -719,7 +822,8 @@ class Smoke:
         emit({"phase": "main_path", "scheme": "MarlinKZG10/BLS12-381", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "check_split_ms": split, "check": bool(ok),
               "tampered_rejected": rejected, "value_matches_host": value_ok, "launches": launches,
-              "ff_launches_by_field": ff_by_field, "all_kernels_launched": all_launched,
+              "ff_launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
         return bool(ok) and rejected and value_ok and all_launched
 
@@ -743,7 +847,7 @@ class Smoke:
             outs[name] = (ev, ntt_lf.intt(spec, ev))
         self.torch.cuda.synchronize()
         path_ms = (time.perf_counter() - t0) * 1e3
-        launches, by_field = self.read_counts()
+        launches, by_field, ff_by_size = self.read_counts()
         needed = list(self.NTT_KERNELS) + ["ff_mont_mul[fr_bn254]"]
         all_launched = self.all_launched(launches, by_field, needed)
 
@@ -776,7 +880,8 @@ class Smoke:
         emit({"phase": "ntt", "field": spec.name, "log_n": NTT_LOG_N, "path_ms": path_ms,
               "checks": checks, "ms": ms, "intt_ms": intt_ms, "portable_ms": portable_ms,
               **bounds, "launches": launches,
-              "ff_launches_by_field": by_field, "all_kernels_launched": all_launched})
+              "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched})
         return all(checks.values()) and all_launched
 
     # -- phase 6 ----------------------------------------------------------
@@ -825,7 +930,7 @@ class Smoke:
         rejected = not stage("check_tampered", lambda: PC.batch_check(
             vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches, by_field = self.read_counts()
+        launches, by_field, ff_by_size = self.read_counts()
         needed = ["ntt_fused_stages", "ntt_stage"] + list(self.LIGERO_FF[which])
         all_launched = self.all_launched(launches, by_field, needed)
 
@@ -857,7 +962,7 @@ class Smoke:
               "queried_columns": len(proofs[0][0].opening.columns),
               "stage_ms": stages, "commit_split_ms": split, "root_matches": root == comms[0].commitment.root,
               "check": bool(ok), "tampered_rejected": rejected, "value_matches_host": value_ok,
-              "launches": launches, "ff_launches_by_field": by_field,
+              "launches": launches, "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and value_ok and all_launched and root == comms[0].commitment.root
 
@@ -895,7 +1000,7 @@ class Smoke:
         ok = stage("check", lambda: ML.check(vk, comm, point, value, proof))
         rejected = not stage("check_tampered", lambda: ML.check(vk, comm, point, (value + 1) % p, proof))
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches, by_field = self.read_counts()
+        launches, by_field, ff_by_size = self.read_counts()
 
         # check's parts apart: the host algebra, and the product of nv + 1
         # pairings; and open's largest part, its first G2 MSM (2^nv points)
@@ -908,13 +1013,14 @@ class Smoke:
         device_value = F.to_ints(spec, P.mle_evaluate(spec, table, F.from_ints(spec, point, device=self.dev)))
         needed = [f"ec_{w}" for w in ("g2_madd", "g2_madd_distinct", "g2_madd_distinct_packed",
                                       "g2_add", "g2_double", "madd_distinct_packed", "add")]
-        needed += ["digit_sort", "ff_mont_mul[fq_bls12_381]", "ff_mont_mul[fr_bls12_381]"]
+        needed += ["digit_sort", "ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]",
+                   "ff_mont_mul[fr_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
         emit({"phase": "multilinear_pc", "scheme": "MultilinearPC/BLS12-381", "num_vars": nv,
               "stage_ms": stages, "check_split_ms": split, "open_split_ms": open_split,
               "check": bool(ok), "tampered_rejected": rejected,
               "value_matches_host": device_value == value,
-              "launches": launches, "ff_launches_by_field": by_field,
+              "launches": launches, "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and device_value == value and all_launched
 
@@ -958,7 +1064,7 @@ class Smoke:
         rejected = not stage("check_tampered", lambda: PC.batch_check(
             vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches, by_field = self.read_counts()
+        launches, by_field, ff_by_size = self.read_counts()
 
         # open again, its parts timed apart: every MSM (the hiding commit and
         # two a round), within them the host window folds, and the key folds;
@@ -978,13 +1084,15 @@ class Smoke:
             acc = (acc * z + c) % p
         value_ok = values[("p", z)] == acc
         needed = ["ec_ed_madd_packed", "ec_ed_add", "ec_ed_double", "digit_sort",
-                  "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_mont_mul[fr_bls12_381]"]
+                  "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_mont_mul[fr_bls12_381]",
+                  "ff_pow[fr_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
         emit({"phase": "ipa", "scheme": "InnerProductArgPC/JubJub", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "open_split_ms": open_split, "check": bool(ok),
               "tampered_rejected": rejected,
               "value_matches_host": value_ok, "rounds": len(proofs[0].l_vec), "launches": launches,
-              "ff_launches_by_field": by_field, "all_kernels_launched": all_launched,
+              "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched,
               "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and value_ok and all_launched
 
@@ -1003,7 +1111,8 @@ def main() -> int:
     smoke = Smoke()
     try:
         name_power = smoke.environment()
-        results = {"ff": smoke.check_ff(), "ec": smoke.check_ec(), "g2": smoke.check_g2(),
+        results = {"ff": smoke.check_ff(), "ff_pow": smoke.check_ff_pow(),
+                   "ec": smoke.check_ec(), "g2": smoke.check_g2(),
                    "ed": smoke.check_ed(), "sort": smoke.check_sort(),
                    "ntt_kernels": smoke.check_ntt_kernels(), "msm": smoke.check_msm(),
                    "msm_g2_jubjub": smoke.check_side_msms(),
@@ -1011,6 +1120,7 @@ def main() -> int:
                    "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni"),
                    "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path()}
         results["kernel_table"] = smoke.finish_table()
+        emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
     except Exception:  # a failing phase: report it and exit non-zero
         traceback.print_exc()
         return 1

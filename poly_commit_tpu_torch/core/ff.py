@@ -20,12 +20,22 @@ at L = 24 is ~2 IMAD per byte -- under the IMAD/bandwidth ratio, so it is
 bound by bytes; add and sub are bound by bytes. The design keeps every
 temporary in registers, so each element is read and written exactly once.
 
+``mont_pow`` (a^e for a Python-int exponent) is the Fermat chain of every
+batched inversion. The JAX package runs it as one ``lax.scan`` of
+``mont_mul`` (poly_commit_tpu/core/msm_tpu.py::_ff_inv); here it is one
+launch of ``pc_ff_pow`` in place of one launch a product (610 for an
+Fq-381 inverse): one thread per column runs the whole square-and-multiply
+chain in registers. Its columns are few (a product-tree root: one), so it
+is bound by the latency of one dependent chain of products, not by bytes
+or by the IMAD rate.
+
 Beside each kernel sits its plain PyTorch version (int64 limb arithmetic,
 vectorised over the limb axis); the wrappers take it only for tensors on the
 CPU. On a CUDA tensor a wrapper launches the kernel or raises. Each wrapper
-counts its launches in ``<wrapper>.launches``, and per field spec in
+counts its launches in ``<wrapper>.launches``, per field spec in
 ``<wrapper>.launches_by_field`` (the 8- and 12-word kernels are separate
-builds, and the scalar field's takes the post-reduce branch).
+builds, and the scalar field's takes the post-reduce branch) and per number
+of columns in ``<wrapper>.launches_by_size`` (``SIZE_CLASSES``).
 """
 
 from __future__ import annotations
@@ -213,13 +223,29 @@ def check_limbs(spec: FieldSpec, *tensors, rows: int = 0) -> None:
             raise ValueError("operands must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = D.library("ff")
     lib.pc_ff_op.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
     lib.pc_ff_op.restype = ctypes.c_int
+    lib.pc_ff_pow.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+    lib.pc_ff_pow.restype = ctypes.c_int
     return lib
+
+
+SIZE_CLASSES = ("1", "<2^16", ">=2^16")  # columns of a launch, for launches_by_size
+
+
+def _count(wrapper, spec: FieldSpec, n: int) -> None:
+    """One launch of ``wrapper``'s kernel on n columns of ``spec``."""
+    wrapper.launches += 1
+    wrapper.launches_by_field[spec.name] = wrapper.launches_by_field.get(spec.name, 0) + 1
+    size = SIZE_CLASSES[0 if n == 1 else 1 if n < 1 << 16 else 2]
+    wrapper.launches_by_size[size] += 1
 
 
 def _run(wrapper, op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
@@ -235,8 +261,7 @@ def _run(wrapper, op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
                          D.stream_of(a))
     if rc != 0:
         raise RuntimeError(f"ff {op} kernel launch failed: CUDA error {rc}")
-    wrapper.launches += 1
-    wrapper.launches_by_field[spec.name] = wrapper.launches_by_field.get(spec.name, 0) + 1
+    _count(wrapper, spec, a.shape[1])
     return out
 
 
@@ -255,9 +280,51 @@ def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _run(sub, "sub", spec, a, b)
 
 
-for _w in (mont_mul, add, sub):
+EXP_WORDS = 12  # the power kernel takes exponents below 2^384
+
+
+def _pow_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e on int64 limbs: square and multiply, MSB first, from R mod p."""
+    acc = consts(spec, a.device, 3).expand(-1, a.shape[1]).clone()
+    for bit in reversed(range(e.bit_length())):
+        acc = _mont_mul_plain(spec, acc, acc)
+        if e >> bit & 1:
+            acc = _mont_mul_plain(spec, acc, a)
+    return acc
+
+
+def _exponent(e) -> int:
+    e = int(e)
+    if not 0 <= e < 1 << (32 * EXP_WORDS):
+        raise ValueError(f"exponent must lie in [0, 2^{32 * EXP_WORDS})")
+    return e
+
+
+def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e (Montgomery in and out, values < 2p) for a Python-int exponent:
+    the whole square-and-multiply chain in one launch on a CUDA tensor."""
+    check_limbs(spec, a)
+    e = _exponent(e)
+    if a.device.type == "cpu":
+        return _pow_plain(spec, a.long(), e).to(torch.int32)
+    D.require_cuda(a)
+    out = torch.empty_like(a)
+    if a.shape[1] == 0:
+        return out
+    words = (ctypes.c_uint32 * EXP_WORDS)(*[(e >> (32 * i)) & 0xFFFFFFFF for i in range(EXP_WORDS)])
+    rc = _lib().pc_ff_pow(n_words(spec), a.data_ptr(), out.data_ptr(), a.shape[1], words,
+                          e.bit_length(), kernel_consts(spec), D.stream_of(a))
+    if rc != 0:
+        raise RuntimeError(f"ff pow kernel launch failed: CUDA error {rc}")
+    _count(mont_pow, spec, a.shape[1])
+    return out
+
+
+WRAPPERS = (mont_mul, add, sub, mont_pow)
+for _w in WRAPPERS:
     _w.launches = 0
     _w.launches_by_field = {}  # spec.name -> launches: each field is its own build
+    _w.launches_by_size = dict.fromkeys(SIZE_CLASSES, 0)
 del _w
 
 
@@ -265,6 +332,12 @@ def plain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     """The plain PyTorch version of kernel op ``op`` on any device."""
     check_limbs(spec, a, b)
     return _PLAIN[op](spec, a.long(), b.long()).to(torch.int32)
+
+
+def plain_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """The plain PyTorch version of ``mont_pow`` on any device."""
+    check_limbs(spec, a)
+    return _pow_plain(spec, a.long(), _exponent(e)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

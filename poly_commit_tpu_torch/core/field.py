@@ -79,13 +79,15 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 
 def pow(spec: FieldSpec, a, e: int):
-    """a^e for a Python-int exponent (square and multiply, MSB first)."""
-    res = one_mont(spec, a.shape[:-1], a.device)
-    for bit in bin(e)[2:] if e else "":
-        res = mont_sqr(spec, res)
-        if bit == "1":
-            res = mont_mul(spec, res, a)
-    return res
+    """a^e for a non-negative Python-int exponent (square and multiply, MSB
+    first: one ``ff.mont_pow`` launch on a CUDA tensor). An exponent past
+    the kernel's 384 bits becomes (e - 1) mod (p - 1) + 1, which leaves
+    a^e unchanged for every a, zero included."""
+    e = int(e)
+    if e >= 1 << (32 * ff.EXP_WORDS):
+        e = (e - 1) % (spec.modulus - 1) + 1
+    out = ff.mont_pow(spec, a.reshape(-1, spec.n_limbs).T.contiguous(), e)
+    return ff.canonicalize(spec, out).T.reshape(a.shape)
 
 
 def inv(spec: FieldSpec, a):

@@ -392,21 +392,11 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _ff_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Fermat inverse a^(p-2) of (L, M) limbs (0 -> 0): square and
-    multiply over the static bits of p - 2."""
-    acc = ff.one_mont(spec, a.shape[1], a.device)
-    for bit in bin(spec.modulus - 2)[2:]:
-        acc = ff.mont_mul(spec, acc, acc)
-        if bit == "1":
-            acc = ff.mont_mul(spec, acc, a)
-    return acc
-
-
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Inverses of the M columns of a (zeros map to zero) with one Fermat
-    inversion: a product tree up (log2 M launches), the root inverted, then
-    inv(child) = inv(parent) * sibling down the tree."""
+    inversion: a product tree up (log2 M launches), the root inverted by
+    one ``ff.mont_pow`` launch (a^(p-2), the JAX package's ``_ff_inv``
+    chain), then inv(child) = inv(parent) * sibling down the tree."""
     L, m = a.shape
     dev = a.device
     zero = ff.is_zero(spec, a)
@@ -418,7 +408,7 @@ def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     while cur.shape[1] > 1:
         cur = ff.mont_mul(spec, cur[:, 0::2].contiguous(), cur[:, 1::2].contiguous())
         levels.append(cur)
-    inv = _ff_inv(spec, cur)
+    inv = ff.mont_pow(spec, cur, spec.modulus - 2)
     for lvl in reversed(levels[:-1]):
         left = lvl[:, 0::2].contiguous()
         right = lvl[:, 1::2].contiguous()

@@ -5,33 +5,52 @@ int32 window digits in [0, sentinel] (the sentinel, 2^c, marks padding and
 points at infinity and must sort last) and returns, per window, the order
 (int32 indices), the sorted keys and the inclusive per-key counts, which are
 the bucket tails: incl[w, b] - 1 is the last sorted position of a key <= b.
-The order inside equal keys is free (the TPU sort is not stable either).
+The sort is stable: equal keys keep their input order, so the order is
+``torch.sort(keys, dim=1, stable=True)``'s on every device (the TPU's
+bitonic sort is not stable; the MSM needs only the grouping).
 
 K3 replaces ``_pallas_pass`` (poly_commit_tpu/core/sort_tpu.py:141), the
-blocked bitonic network that keeps 2^17-element blocks in VMEM. Hopper's
-natural form is a counting sort over the sentinel + 1 keys (csrc/
-digit_sort.cu): a histogram with global atomics, one scan per window, a
-scatter through atomic cursors. What bounds it on the card: it reads the
-keys twice and writes order and keys once, ~16 bytes per key, with no
-arithmetic to speak of, so it is bound by bytes (and by atomic contention on
-popular keys, such as the sentinel of a padded window). The design makes
-three passes and no comparisons; the tails come for free from the scan.
+blocked bitonic network that keeps 2^17-element blocks in VMEM. On Hopper
+it is a stable LSD radix sort per window (csrc/digit_sort.cu): one upsweep
+builds every pass's digit histograms in shared memory, then each pass ranks
+4096-key tiles in shared memory by warp-level matching, takes the tiles'
+global offsets by a chained scan with decoupled look-back, and writes keys
+and indices out in runs ordered by digit. A pass takes at most 9 bits
+(``radix_plan``): the 17-bit keys of c = 16 take two passes, c <= 8 one.
+The tails come from the sorted keys (run ends, then a max-scan). What
+bounds it on the card: bytes (a read of the keys and a write of order and
+keys at the least), with no arithmetic to speak of.
 
-The plain version (torch.sort plus a bincount) runs only for CPU tensors;
+The upsweep also counts keys outside [0, sentinel] on the card; the
+wrapper reads that count once after the launches and raises. The plain
+version (a stable torch.sort plus a bincount) runs only for CPU tensors;
 the wrapper counts its launches in ``digit_sort.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import device as D
 
+MAX_PASS_BITS = 9  # a pass's histogram (2^9 bins) stays in shared memory
+
+
+def radix_plan(sentinel: int) -> tuple:
+    """Digit bits of each LSD pass, from the bottom: the key bits of
+    [0, sentinel] split into the fewest passes of at most 9 bits, the
+    first pass taking the larger share (17 bits: (9, 8))."""
+    bits = max(1, int(sentinel).bit_length())
+    passes = -(-bits // MAX_PASS_BITS)
+    first = -(-bits // passes)
+    return (first,) + (bits - first,) * (passes - 1)
+
 
 def _plain(keys: torch.Tensor, sentinel: int):
-    sorted_keys, order = torch.sort(keys, dim=1)
+    sorted_keys, order = torch.sort(keys, dim=1, stable=True)
     w = keys.shape[0]
     bins = sentinel + 1
     offs = (keys.long() + bins * torch.arange(w, device=keys.device).unsqueeze(1)).reshape(-1)
@@ -40,43 +59,69 @@ def _plain(keys: torch.Tensor, sentinel: int):
     return order.to(torch.int32), sorted_keys, incl.to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = D.library("digit_sort")
-    lib.pc_digit_sort.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.pc_digit_sort_scratch.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.pc_digit_sort_scratch.restype = ctypes.c_longlong
+    lib.pc_digit_sort.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     lib.pc_digit_sort.restype = ctypes.c_int
     return lib
 
 
-def _check(keys: torch.Tensor, sentinel: int):
+def _check_layout(keys: torch.Tensor):
     if keys.dtype != torch.int32 or keys.dim() != 2 or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous (W, N) int32 tensor")
+
+
+def _check_range(keys: torch.Tensor, sentinel: int):
     if keys.numel() and (int(keys.min()) < 0 or int(keys.max()) > sentinel):
         raise ValueError(f"keys must lie in [0, {sentinel}]")
 
 
 def digit_sort(keys: torch.Tensor, sentinel: int):
     """(W, N) int32 keys -> (order, sorted keys, inclusive counts (W, sentinel+1))."""
-    _check(keys, sentinel)
+    _check_layout(keys)
     if keys.device.type == "cpu":
+        _check_range(keys, sentinel)
         return _plain(keys, sentinel)
+    order, sorted_keys, incl, bad = _launch(keys, sentinel)
+    if int(bad.item()):
+        raise ValueError(f"keys must lie in [0, {sentinel}]")
+    return order, sorted_keys, incl
+
+
+def _launch(keys: torch.Tensor, sentinel: int):
+    """K3's launches on CUDA keys, without the host's look at the range:
+    (order, sorted keys, incl, bad), bad a one-word device count of the
+    keys outside [0, sentinel]."""
+    _check_layout(keys)
     D.require_cuda(keys)
     w, n = keys.shape
     bins = sentinel + 1
-    hist = torch.zeros((w, bins), dtype=torch.int32, device=keys.device)
-    cursor = torch.empty_like(hist)
-    incl = torch.empty_like(hist)
     order = torch.empty_like(keys)
     sorted_keys = torch.empty_like(keys)
+    incl = torch.empty((w, bins), dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:
-        return order, sorted_keys, torch.zeros_like(hist)
-    rc = _lib().pc_digit_sort(keys.data_ptr(), hist.data_ptr(), cursor.data_ptr(),
-                              order.data_ptr(), sorted_keys.data_ptr(), incl.data_ptr(),
-                              w, n, bins, D.stream_of(keys))
+        return order, sorted_keys, incl.zero_(), torch.zeros(1, dtype=torch.int32,
+                                                              device=keys.device)
+    plan = radix_plan(sentinel)
+    bits = (ctypes.c_int * len(plan))(*plan)
+    lib = _lib()
+    words = lib.pc_digit_sort_scratch(w, n, bins, len(plan), bits)
+    if words < 0:
+        raise ValueError(f"digit sort takes no ({w}, {n}) keys below {bins}")
+    scratch = torch.empty(words, dtype=torch.int32, device=keys.device)
+    rc = lib.pc_digit_sort(keys.data_ptr(), order.data_ptr(), sorted_keys.data_ptr(),
+                           incl.data_ptr(), scratch.data_ptr(), w, n, bins, len(plan), bits,
+                           D.stream_of(keys))
     if rc != 0:
         raise RuntimeError(f"digit sort kernel launch failed: CUDA error {rc}")
     digit_sort.launches += 1
-    return order, sorted_keys, incl
+    return order, sorted_keys, incl, scratch[:1]  # scratch word 0: the keys out of range
 
 
 digit_sort.launches = 0
@@ -84,5 +129,6 @@ digit_sort.launches = 0
 
 def plain(keys: torch.Tensor, sentinel: int):
     """The plain PyTorch version on any device."""
-    _check(keys, sentinel)
+    _check_layout(keys)
+    _check_range(keys, sentinel)
     return _plain(keys, sentinel)

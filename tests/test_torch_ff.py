@@ -97,6 +97,43 @@ def test_ff_refuses_bad_operands():
         ff.mont_mul(spec, meta, meta)
 
 
+@pytest.mark.parametrize("spec_name", ["fq381", "fr381"])
+def test_mont_pow_and_batch_inv_match_jax_ff_inv(spec_name):
+    """ff.mont_pow (the plain version of the one-launch Fermat chain) and
+    msm_gpu.batch_inv against the JAX package's lax.scan chain
+    (msm_tpu._ff_inv) and host inverses; column 0 is zero."""
+    from poly_commit_tpu.core import msm_tpu
+    from poly_commit_tpu_torch.core import msm_gpu
+
+    spec = SPECS[spec_name]
+    p = spec.modulus
+    rng = np.random.default_rng(31 + list(SPECS).index(spec_name))
+    vals = [0, 1, p - 1] + [int.from_bytes(rng.bytes(2 * spec.n_limbs), "little") % p
+                            for _ in range(9)]
+    limbs = np.ascontiguousarray(ff.ints_to_limbs(spec, vals).T)  # (L, M) Montgomery
+    want = [pow(v, -1, p) if v else 0 for v in vals]
+    assert jff.to_ints(spec, msm_tpu._ff_inv(spec, jnp.asarray(limbs.astype(np.uint32)))) == want
+    a = torch.from_numpy(limbs.astype(np.int32))
+    assert ff.to_ints(spec, ff.mont_pow(spec, a, p - 2)) == want
+    assert ff.to_ints(spec, ff.plain_pow(spec, a, p - 2)) == want
+    assert ff.to_ints(spec, msm_gpu.batch_inv(spec, a)) == want
+    assert ff.to_ints(spec, ff.mont_pow(spec, a, 0)) == [1] * len(vals)
+    assert ff.to_ints(spec, ff.mont_pow(spec, a, 5)) == [pow(v, 5, p) for v in vals]
+
+
+def test_mont_pow_refuses_bad_exponents():
+    spec = FP.FR_BLS12_381
+    a = ff.one_mont(spec, 3, "cpu")
+    for e in (-1, 1 << 384):
+        with pytest.raises(ValueError):
+            ff.mont_pow(spec, a, e)
+    with pytest.raises(ValueError):
+        ff.mont_pow(spec, a.long(), 3)
+    meta = torch.empty((spec.n_limbs, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ff.mont_pow(spec, meta, 3)
+
+
 @pytest.mark.parametrize("spec_name", ["fr381", "fq377"])
 @pytest.mark.parametrize("op", ["mont_mul", "add", "sub"])
 def test_field_binary_matches_jax(spec_name, op):
@@ -129,6 +166,21 @@ def test_field_unary_matches_jax(spec_name):
     assert np.array_equal(field.to_mont(spec, field.from_mont(spec, tx)).numpy(), tx.numpy())
     assert np.array_equal(tx.numpy(), np.asarray(jx).astype(np.int32))
     assert field.to_ints(spec, field.pow(spec, tx, 5)) == [pow(v, 5, spec.modulus) for v in xs]
+
+
+@pytest.mark.parametrize("spec_name", ["fr381", "fq381"])
+def test_field_pow_takes_exponents_past_the_kernel_width(spec_name):
+    """field.pow reduces an exponent of 384 bits or more before the kernel;
+    a multiple of p - 1 still sends zero to zero and the rest to one."""
+    spec = SPECS[spec_name]
+    p = spec.modulus
+    rng = np.random.default_rng(13)
+    xs = [0, 1, p - 1] + [int.from_bytes(rng.bytes(48), "little") % p for _ in range(3)]
+    tx = field.from_ints(spec, xs, device="cpu")
+    for e in ((p - 1) << 300, (1 << 400) + 3, (1 << 384) - 1):
+        assert field.to_ints(spec, field.pow(spec, tx, e)) == [pow(v, e, p) for v in xs]
+    with pytest.raises(ValueError):
+        field.pow(spec, tx, -1)
 
 
 def test_conversions_roundtrip():

@@ -159,16 +159,81 @@ def test_edwards_kernel_matches_plain(cuda, which):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FQ_BLS12_381, FP.FQ_BLS12_377, FP.FR_BLS12_381, FP.FQ_BN254],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 4099])
+def test_mont_pow_kernel_matches_plain(cuda, spec, m):
+    """The power kernel equals its plain version limb for limb (the same
+    products, so the same lazy limbs), for the Fermat exponent and others."""
+    a = _field(spec, m, 8).to(cuda)
+    a[:, 0] = 0  # a zero column
+    for e in (spec.modulus - 2, 0, 1, 5, (1 << 383) + 12345):
+        got = ff.mont_pow(spec, a, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ff.plain_pow(spec, a, e)), e
+
+
+@pytest.mark.gpu
+def test_batch_inv_inverts_the_root_in_one_launch(cuda):
+    from poly_commit_tpu_torch.core import msm_gpu
+
+    spec = FP.FQ_BLS12_381
+    rnd = random.Random(9)
+    vals = [0] + [rnd.randrange(spec.modulus) for _ in range(999)]
+    a = ff.from_ints(spec, vals, device=cuda)
+    pows, muls = ff.mont_pow.launches, ff.mont_mul.launches
+    inv = msm_gpu.batch_inv(spec, a)
+    torch.cuda.synchronize()
+    assert ff.mont_pow.launches - pows == 1
+    assert ff.mont_mul.launches - muls == 3 * 10  # the tree of 1024 columns: up once, down twice
+    assert ff.to_ints(spec, inv) == [pow(v, -1, spec.modulus) if v else 0 for v in vals]
+
+
+def _sort_keys(w, n, sentinel, cuda):
+    """Random keys with ~10% sentinels; window 1 all sentinel, window 2 a
+    few repeated keys."""
+    keys = torch.randint(0, sentinel, (w, n), dtype=torch.int32, device=cuda)
+    share = torch.rand((w, n), device=cuda) < 0.1
+    keys = torch.where(share, torch.full_like(keys, sentinel), keys)
+    keys[1] = sentinel
+    keys[2] = torch.randint(0, 3, (n,), dtype=torch.int32, device=cuda)
+    return keys.contiguous()
+
+
+@pytest.mark.gpu
 def test_digit_sort_kernel_matches_plain(cuda):
     keys = torch.randint(0, SENTINEL + 1, (16, 1 << 16), dtype=torch.int32, device=cuda)
     keys[3, :40000] = SENTINEL
     order, sk, incl = sort_gpu.digit_sort(keys, SENTINEL)
     torch.cuda.synchronize()
-    _, p_sk, p_incl = sort_gpu.plain(keys, SENTINEL)
+    p_order, p_sk, p_incl = sort_gpu.plain(keys, SENTINEL)
     assert torch.equal(sk, p_sk) and torch.equal(incl, p_incl)
+    assert torch.equal(order, p_order)  # stable: index for index
     assert torch.equal(torch.gather(keys, 1, order.long()), sk)
-    assert torch.equal(torch.sort(order.long(), dim=1).values,
-                       torch.arange(1 << 16, device=cuda).expand(16, -1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,c", [(16, 1 << 16, 16), (32, 3000, 8), (64, 200, 4)])
+def test_digit_sort_matches_stable_plain(cuda, w, n, c):
+    """The MSM's three shapes: order, sorted keys and tails equal the
+    stable plain version exactly, an all-sentinel window included."""
+    sentinel = 1 << c
+    keys = _sort_keys(w, n, sentinel, cuda)
+    got = sort_gpu.digit_sort(keys, sentinel)
+    torch.cuda.synchronize()
+    want = sort_gpu.plain(keys, sentinel)
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)
+    assert torch.equal(got[0].long(), torch.sort(keys, dim=1, stable=True).indices)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [SENTINEL + 1, -1, 1 << 20])
+def test_digit_sort_rejects_out_of_range_keys_on_card(cuda, bad):
+    keys = torch.zeros((3, 5000), dtype=torch.int32, device=cuda)
+    keys[2, 4321] = bad
+    with pytest.raises(ValueError):
+        sort_gpu.digit_sort(keys, SENTINEL)
 
 
 @pytest.mark.gpu
