@@ -38,8 +38,12 @@ Phases, one JSON line each (times in ms):
      batch_check, the value against host Horner, a tampered value rejected;
      then open again with its MSMs, their host window folds and the key
      folds timed apart.
-Phase 2 also holds K2c (the six G2 formulas on the BLS12-381 and BLS12-377
-Fq2) and K2b (the four JubJub formulas) against their plain versions, and
+Phase 1 also prints a build line: each kernel source's nvcc seconds and,
+per kernel entry, the registers and spill bytes ptxas reported. Phase 2
+also holds K2c (the six G2 formulas on the BLS12-381 and BLS12-377 Fq2)
+and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
+multiplication, at 2^15 points and at 1, also against the chain of
+ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
 Phases 4-8 are the paths: each runs with every launch count set to 0 just
 before it and read just after; the kernel table sums them. Each path's
@@ -92,6 +96,29 @@ def time_ms(fn, reps):
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device time of one call from a CUDA graph of ``reps`` calls: the
+    launches run back to back, without the wrapper's host work between
+    them (the time of the kernel where the host would be the slower)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -291,6 +318,13 @@ class Smoke:
         emit({"phase": "environment", "gpu": name_power, "sms": sms, "max_sm_clock_mhz": max_clock_mhz,
               "imad_per_s": self.imad_per_s, "torch": tool["torch"], "cuda": tool["cuda"],
               "nvcc": tool["nvcc"], "triton": tool["triton"], "build_ms": build_s * 1e3})
+        ptxas = {name: D.ptxas_report(D.build_log(name)) for name in D.SOURCES}
+        # K2c at 12 words (BLS12-381/377 Fq2), its kernels and the calls
+        # they make: the redesign's target is no spills
+        g2_12 = [e for e in ptxas["ec_g2"] if "<12" in e["entry"] or "ILi12E" in e["entry"]]
+        spills = sum(e.get("spill_stores", 0) + e.get("spill_loads", 0) for e in g2_12)
+        emit({"phase": "build", "nvcc_s": D.BUILD_SECONDS, "ptxas": ptxas,
+              "g2_nw12_entries": len(g2_12), "g2_nw12_spill_bytes": spills})
         return name_power
 
     # -- phase 2 ----------------------------------------------------------
@@ -483,9 +517,10 @@ class Smoke:
         return ok
 
     # the K2c and K2b formulas that no path launches (every MSM of the paths
-    # assumes distinct bases; no Edwards fixed-base): held against their
-    # plain versions here, without a kernel-table entry
-    OFF_PATH = ("ec_g2_madd_packed", "ec_ed_madd")
+    # assumes distinct bases; no Edwards fixed-base; IPA-PC's key fold runs
+    # ed_smul, whose doublings are inside its one launch): held against
+    # their plain versions here, without a kernel-table entry
+    OFF_PATH = ("ec_g2_madd_packed", "ec_ed_madd", "ec_ed_double")
     CURVE_KERNEL_N = 1 << 16  # the MSM scan's width: 16 windows x 4096 lanes
     IN_COORDS = {"madd": 5, "madd_distinct": 5, "madd_packed": 4, "madd_distinct_packed": 4,
                  "add": 6, "double": 3}
@@ -540,6 +575,7 @@ class Smoke:
                     emit(line)
                     continue
                 ms = time_ms(lambda: fn(spec, P, *a), 20)
+                device_ms = graph_ms(lambda: fn(spec, P, *a), 20)
                 plain_ms = time_ms(lambda: ec_lf.plain(which, spec, *P, *flat), 1)
                 # the main formula on every lane with a finite P, plus the
                 # doubling where P == Q in the complete forms
@@ -550,7 +586,8 @@ class Smoke:
                 n_imad = n_prod * IMAD_PER_FQ_PRODUCT
                 if name not in self.OFF_PATH:
                     self.entry(name, "g2", err, ms, plain_ms, n_bytes, n_imad)
-                emit({**line, "ms": ms, "plain_ms": plain_ms, **self.bound(n_bytes, n_imad)})
+                emit({**line, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                      **self.bound(n_bytes, n_imad)})
             del x1, y1, z1, x2, y2, z2, P, Q, pq, args
         for name, err in errs.items():
             if name in self.kernels:
@@ -581,6 +618,8 @@ class Smoke:
         ok = True
         for fn in ec_lf.ED_WRAPPERS:
             which = fn.__name__
+            if which == "ed_smul":
+                continue
             a = args[which]
             flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
             got = fn(spec, P, *a)
@@ -588,6 +627,7 @@ class Smoke:
             err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
             ok &= err == 0
             ms = time_ms(lambda: fn(spec, P, *a), 20)
+            device_ms = graph_ms(lambda: fn(spec, P, *a), 20)
             plain_ms = time_ms(lambda: ec_lf.plain(which, spec, *P, *flat), 1)
             # 9 products a point (add-2008-hwcd-3 with the 2d product; the
             # mixed forms compute t2 = x2 y2 instead of z1 z2), no branches
@@ -597,7 +637,76 @@ class Smoke:
             if name not in self.OFF_PATH:
                 self.entry(name, "ed", err, ms, plain_ms, n_bytes, n_imad)
             emit({"phase": "kernels", "kernel": name, "field": spec.name, "n": n, "max_abs_err": err,
-                  "ms": ms, "plain_ms": plain_ms, **self.bound(n_bytes, n_imad)})
+                  "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, **self.bound(n_bytes, n_imad)})
+        return ok and self.check_ed_smul()
+
+    # IPA-PC's first key fold (2^15 points), and a fold's last (1 point)
+    SMUL_POINTS = (1 << 15, 1)
+
+    @staticmethod
+    def ed_chain(spec, p, k):
+        """k p as the port computed it before ``ec_lf.ed_smul``: one
+        ed_double launch a bit and one ed_add launch a set bit, MSB first."""
+        from poly_commit_tpu_torch.core import ec_lf
+
+        acc = ec_lf.ed_infinity(spec, p[0].shape[1], p[0].device)
+        for bit in bin(k)[2:] if k else "":
+            acc = ec_lf.ed_double(spec, acc)
+            if bit == "1":
+                acc = ec_lf.ed_add(spec, acc, p)
+        return acc
+
+    def check_ed_smul(self):
+        """K2b's one-launch scalar multiplication against its plain version
+        bit for bit, and against the chain of launches it replaced limb for
+        limb, at SMUL_POINTS: lane 0 the identity, lane 2 the negation of
+        lane 1; k in {0, 1, 2^251 + 1} and a 252-bit IPA round challenge
+        (the table entry, at 2^15 points, timed beside the chain)."""
+        import random
+
+        from poly_commit_tpu_torch.core import ec_lf
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        spec = FP.JUBJUB_FQ
+        challenge = random.Random(8).getrandbits(252) | (1 << 251)
+        ok = True
+        for n in self.SMUL_POINTS:
+            P = [self.lazy(spec, n) for _ in range(4)]
+            ident = ec_lf.ed_infinity(spec, 1, self.dev)
+            for k in range(4):
+                P[k][:, 0] = ident[k][:, 0]
+            if n > 2:
+                neg = ec_lf.ed_neg(spec, tuple(t[:, 1:2].contiguous() for t in P))
+                for k in range(4):
+                    P[k][:, 2] = neg[k][:, 0]
+            P = tuple(P)
+            for k in (0, 1, (1 << 251) + 1, challenge):
+                got = ec_lf.ed_smul(spec, P, k)
+                want = ec_lf.ed_smul_plain(spec, P, k)
+                chain = self.ed_chain(spec, P, k)
+                err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+                chain_err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, chain))
+                ok &= err == 0 and chain_err == 0
+                line = {"phase": "kernels", "kernel": "ec_ed_smul", "n": n, "k_bits": k.bit_length(),
+                        "k_set_bits": bin(k).count("1"), "max_abs_err": err,
+                        "chain_max_abs_err": chain_err}
+                if k == challenge:
+                    formulas = k.bit_length() + bin(k).count("1")
+                    ms = time_ms(lambda: ec_lf.ed_smul(spec, P, k), 5)
+                    device_ms = graph_ms(lambda: ec_lf.ed_smul(spec, P, k), 5)
+                    chain_ms = time_ms(lambda: self.ed_chain(spec, P, k), 2)
+                    plain_ms = time_ms(lambda: ec_lf.ed_smul_plain(spec, P, k), 1)
+                    # the point read and k P written once; the chain's unified
+                    # formulas of 9 products of 264 IMADs a point
+                    n_bytes = 8 * spec.n_limbs * 4 * n
+                    n_imad = formulas * 9 * IMAD_PER_PRODUCT * n
+                    line.update(formulas=formulas, ms=ms, device_ms=device_ms, chain_ms=chain_ms,
+                                plain_ms=plain_ms)
+                    if n == self.SMUL_POINTS[0]:
+                        line.update(self.entry("ec_ed_smul", "ed", err, ms, plain_ms, n_bytes, n_imad))
+                    else:
+                        line.update(self.bound(n_bytes, n_imad))
+                emit(line)
         return ok
 
     # (windows, points, c): the 2^20 MSM's keys (the table entry), and the
@@ -1083,18 +1192,22 @@ class Smoke:
         for c in reversed(F.to_ints(spec, coeffs)):
             acc = (acc * z + c) % p
         value_ok = values[("p", z)] == acc
-        needed = ["ec_ed_madd_packed", "ec_ed_add", "ec_ed_double", "digit_sort",
+        needed = ["ec_ed_madd_packed", "ec_ed_add", "ec_ed_smul", "digit_sort",
                   "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_mont_mul[fr_bls12_381]",
                   "ff_pow[fr_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
+        # each round's key fold is one ed_smul launch
+        rounds = len(proofs[0].l_vec)
+        one_smul_a_round = launches["ec_ed_smul"] == rounds
         emit({"phase": "ipa", "scheme": "InnerProductArgPC/JubJub", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "open_split_ms": open_split, "check": bool(ok),
               "tampered_rejected": rejected,
-              "value_matches_host": value_ok, "rounds": len(proofs[0].l_vec), "launches": launches,
+              "value_matches_host": value_ok, "rounds": rounds, "launches": launches,
+              "one_ed_smul_a_round": one_smul_a_round,
               "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched,
               "peak_mem_gb": peak_gb})
-        return bool(ok) and rejected and value_ok and all_launched
+        return bool(ok) and rejected and value_ok and all_launched and one_smul_a_round
 
 
 def main() -> int:

@@ -6,7 +6,8 @@ the Weierstrass groups (coordinates (..., L) in G1, (..., 2, L) Fq2 pairs in
 G2), extended (X, Y, Z, T) with identity (0, 1, 1, 0) for JubJub; affine
 points are (x, y, inf). Group operations flatten the batch to the
 limbs-first layout and run core/ec_lf.py: kernel K2a for G1, K2c for G2,
-K2b for JubJub on CUDA tensors. Normalisation runs a batched inversion
+K2b for JubJub (its scalar multiplication one ``ed_smul`` launch) on CUDA
+tensors. Normalisation runs a batched inversion
 (kernel K1). Every coordinate these methods return is canonical (< p).
 Each group keeps its generator as host ints too; Marlin's verifier key
 keeps its G2 points h and beta_h as host triples.
@@ -189,19 +190,13 @@ class EdwardsGroup:
         return self._fl(EC.ed_add(self.spec, self._lf(p, shape), self._lf(q, shape)), shape)
 
     def scalar_mul(self, p, k: int):
-        """k p for one Python-int scalar shared by every lane, MSB first: a
-        K2b ``ed_double`` per bit and an ``ed_add`` per set bit, on the
-        limbs-first layout (the same group element as the JAX package's
-        per-bit select, which also adds where the bit is 0)."""
+        """k p for one Python-int scalar 0 <= k < 2^256 shared by every
+        lane: one K2b ``ed_smul`` launch, MSB first over k's bits, a unified
+        doubling per bit and an addition per set bit, on the limbs-first
+        layout (the same group element as the JAX package's per-bit select,
+        which also adds where the bit is 0)."""
         shape = tuple(p[0].shape[:-1])
-        base = self._lf(p, shape)
-        n = base[0].shape[1]
-        acc = EC.ed_infinity(self.spec, n, base[0].device)
-        for bit in bin(int(k))[2:] if k else "":
-            acc = EC.ed_double(self.spec, acc)
-            if bit == "1":
-                acc = EC.ed_add(self.spec, acc, base)
-        return self._fl(acc, shape)
+        return self._fl(EC.ed_smul(self.spec, self._lf(p, shape), int(k)), shape)
 
     def to_affine(self, p):
         """(x, y, inf): x/z, y/z by one batched inversion on the device."""

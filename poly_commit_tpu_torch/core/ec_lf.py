@@ -23,10 +23,15 @@ design spends nothing on memory beyond one read and one write per point.
 K2c (csrc/ec_g2.cu) replaces the ``g2_*`` entries: the same formulas
 (csrc/ec_jac.cuh is shared with K2a) over Fq2 = Fq[u]/(u^2 - nr), Karatsuba
 products and the non-residue nr = -k as an addition chain, as ``_fx_quad``
-does. K2b (csrc/ec_ed.cu) replaces the ``ed_*`` entries: add-2008-hwcd-3
-with a = -1, complete and branch-free, over Fr-381 (4p > R: every product
-takes the post-reduce); ``ed_double`` is ``ed_add(p, p)``, as in the JAX
-package, so both give the same coordinates.
+does, with a pair of lanes a point (one per Fq2 component, trading values
+by warp shuffles) and the base product one function call. K2b
+(csrc/ec_ed.cu) replaces the ``ed_*`` entries: add-2008-hwcd-3 with a = -1,
+complete and branch-free, over Fr-381 (4p > R: every product takes the
+post-reduce); ``ed_double`` is ``ed_add(p, p)``, as in the JAX package, so
+both give the same coordinates. ``ed_smul`` is k p for one scalar shared by
+every lane in one K2b launch: the MSB-first chain of ``ed_double`` and
+``ed_add`` that the JAX package scans per bit
+(poly_commit_tpu/core/curve.py::scalar_mul), limb for limb.
 
 The plain versions below follow ec_lf.py's formulas on ff's plain field ops
 and run only for CPU tensors; each wrapper counts its kernel launches.
@@ -257,6 +262,19 @@ def _ed_add_plain(f: _Fx, x1, y1, z1, t1, x2, y2, z2, t2):
     return f.mul(e, ff_), f.mul(g, h), f.mul(ff_, g), f.mul(e, h)
 
 
+def _ed_smul_plain(spec: FieldSpec, coords, k: int, bits: int):
+    """k p over the low ``bits`` bits of k, MSB first: ed_add(acc, acc),
+    then ed_add(acc, p) where the bit is set, from the identity."""
+    f = _Fx(spec)
+    base = [t.long() for t in coords]
+    acc = [t.long() for t in ed_infinity(spec, base[0].shape[1], base[0].device)]
+    for i in reversed(range(bits)):
+        acc = _ed_add_plain(f, *acc, *acc)
+        if k >> i & 1:
+            acc = _ed_add_plain(f, *acc, *base)
+    return tuple(t.to(torch.int32).contiguous() for t in acc)
+
+
 def _plain(which: str, spec: FieldSpec, coords):
     c = [t.long() for t in coords]
     f = _Fx(spec)
@@ -300,10 +318,13 @@ def _lib(name: str):
                                     ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
         lib.pc_ec_g2_op.restype = ctypes.c_int
     else:
+        u32p = ctypes.POINTER(ctypes.c_uint32)
         lib.pc_ec_ed_op.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32),
-                                    ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+                                    ctypes.c_longlong, u32p, u32p, ctypes.c_void_p]
         lib.pc_ec_ed_op.restype = ctypes.c_int
+        lib.pc_ec_ed_smul.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, u32p,
+                                      u32p, u32p, ctypes.c_int, ctypes.c_void_p]
+        lib.pc_ec_ed_smul.restype = ctypes.c_int
     return lib
 
 
@@ -494,7 +515,53 @@ def ed_double(spec, p):
     return _run(ed_double, "ed_double", spec, tuple(p))
 
 
-ED_WRAPPERS = (ed_madd, ed_madd_packed, ed_add, ed_double)
+SMUL_BITS = 256  # the kernel's scalar width: 8 32-bit words
+
+
+def _smul_args(spec, p, k):
+    """(coords, k) checked: 0 <= k < 2^SMUL_BITS, JubJub limbs."""
+    k = int(k)
+    if not 0 <= k < 1 << SMUL_BITS:
+        raise ValueError(f"ed_smul takes 0 <= k < 2^{SMUL_BITS}: k={k}")
+    coords = tuple(p)
+    _check("ed_smul", spec, coords)
+    if spec is not FP.JUBJUB_FQ:
+        raise ValueError(f"{spec.name}: the Edwards kernel is JubJub's (over Fr-381)")
+    return coords, k
+
+
+def ed_smul(spec, p, k: int):
+    """k p for one Python-int scalar 0 <= k < 2^SMUL_BITS shared by every
+    lane: MSB first over k's bits, ed_add(acc, acc) then ed_add(acc, p)
+    where the bit is set, from the identity; limb for limb the chain of
+    ``ed_double`` and ``ed_add`` launches, in one K2b launch
+    (``pc_ec_ed_smul``)."""
+    coords, k = _smul_args(spec, p, k)
+    if coords[0].device.type == "cpu":
+        return _ed_smul_plain(spec, coords, k, k.bit_length())
+    D.require_cuda(*coords)
+    outs = tuple(torch.empty_like(coords[0]) for _ in range(4))
+    n = coords[0].shape[1]
+    if n == 0:
+        return outs
+    ins = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in coords])
+    optrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in outs])
+    words = (ctypes.c_uint32 * 8)(*[(k >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+    rc = _lib("ec_ed").pc_ec_ed_smul(ins, optrs, n, ff.kernel_consts(spec), _k2d(spec)[1], words,
+                                     k.bit_length(), D.stream_of(coords[0]))
+    if rc != 0:
+        raise RuntimeError(f"ec ed_smul kernel launch failed: CUDA error {rc}")
+    ed_smul.launches += 1
+    return outs
+
+
+def ed_smul_plain(spec, p, k: int):
+    """The plain PyTorch version of ``ed_smul`` on any device."""
+    coords, k = _smul_args(spec, p, k)
+    return _ed_smul_plain(spec, coords, k, k.bit_length())
+
+
+ED_WRAPPERS = (ed_madd, ed_madd_packed, ed_add, ed_double, ed_smul)
 for _w in G2_WRAPPERS + ED_WRAPPERS:
     _w.launches = 0
 

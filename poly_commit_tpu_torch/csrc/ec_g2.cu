@@ -1,7 +1,8 @@
-// K2c: the G2 Jacobian formulas over Fq2 = Fq[u]/(u^2 - nr), one thread per
-// point, every temporary in registers. Replaces the g2_* entries of
-// poly_commit_tpu/core/ec_lf.py::_ec_fn: ec_jac.cuh's formulas (the same as
-// K2a's) over the field policy Fp2 below, which mirrors ec_lf.py::_fx_quad.
+// K2c: the G2 Jacobian formulas over Fq2 = Fq[u]/(u^2 - nr), a pair of
+// adjacent lanes per point, every temporary in registers. Replaces the g2_*
+// entries of poly_commit_tpu/core/ec_lf.py::_ec_fn: ec_jac.cuh's formulas
+// (the same as K2a's) over the field policy Fp2Pair below, which runs
+// ec_lf.py::_fx_quad's operation sequence split over the two lanes.
 //
 // A coordinate is a (2L, N) int32 tensor, c0's L limb rows then c1's; the
 // packed affine input is (2L, N) 32-bit words: x's c0 and c1 words, then
@@ -9,71 +10,103 @@
 // BN254, 5 for BLS12-377), an addition chain. Carries never cross from c0
 // to c1: every operation is per component.
 //
+// The split: lane 0 of a pair holds the c0 component of every Fq2 value,
+// lane 1 holds c1, so a lane's point is 36 words at NW = 12 where a thread
+// of the first version held 72 and spilled. Addition and subtraction are
+// per lane. A product keeps Fp2::mul's Karatsuba sequence: each lane forms
+// its own t = a_j b_j and s = (a0 + a1)(b0 + b1), the lanes trade t, and
+// lane 0 finishes c0 = t0 - K t1, lane 1 c1 = s - t0 - t1: four base
+// products a pair in place of three, with two dependent products a lane in
+// place of three. Every base operation is the one the plain version runs,
+// so the results are bit for bit the plain version's. Lane j loads and
+// stores component j's rows: a warp's access is two contiguous runs of 16
+// points, one per component, the same sectors as one run of 32.
+//
 // What bounds it on the card: a madd reads 4 and writes 3 coordinates of
-// twice K2a's size and does 3 base products for each Fq2 product, ~33 base
-// products (~20,000 IMADs at L = 24) per point: bound by integer
-// multiplies, as K2a is. An Fq2 point holds 72 words at NW = 12, so the
-// formulas' temporaries exceed the 255 registers a thread may hold and ptxas
-// spills to local memory; the first version accepts that (the build log
-// records the counts). The base product keeps its outer loop rolled
-// (``mul_rolled``): with every loop unrolled, as K1 and K2a have it, the
-// three builds of this file took 510 s of nvcc on the GPU machine, most of
-// the time budget of a run that builds at first use.
+// twice K2a's size and does 3 base products for each Fq2 product (the JAX
+// kernel's work; this design does 4), ~33 base products (~20,000 IMADs at
+// L = 24) per point: bound by integer multiplies, as K2a is.
+//
+// The base product is ff.cuh's CIOS with every loop unrolled, as one
+// function call (__noinline__): inlined at each of a formula's ~30 sites,
+// the unrolled formulas outgrow the instruction cache, and the call keeps
+// one copy of the product a build.
 #include "ec_jac.cuh"
 
-// ff.cuh's CIOS product with the outer loop rolled: word i of b is taken
-// from the front of a copy that shifts down one word per round, so no
-// register array is indexed by a variable. The same arithmetic as fe_mul.
+// The constants a product reads (p, 2p, -p^-1, the post-reduce flag), by
+// value into a call and back into a FieldConsts inside it.
 template <int NW>
-__device__ __forceinline__ void mul_rolled(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b,
-                                           const FieldConsts& c) {
-  uint32_t t[NW + 2];
+struct MulConsts {
+  Fe<NW> p, twop;
+  uint32_t inv, post;
+};
+
+template <int NW>
+__device__ __forceinline__ MulConsts<NW> mul_consts(const FieldConsts& c) {
+  MulConsts<NW> m;
 #pragma unroll
-  for (int k = 0; k < NW + 2; ++k) t[k] = 0;
-  Fe<NW> bb = b;
-#pragma unroll 1
-  for (int i = 0; i < NW; ++i) {
-    uint32_t bi = bb.w[0];
-#pragma unroll
-    for (int k = 0; k + 1 < NW; ++k) bb.w[k] = bb.w[k + 1];
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      uint64_t s = (uint64_t)t[j] + (uint64_t)a.w[j] * bi + carry;
-      t[j] = (uint32_t)s;
-      carry = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[NW] + carry;
-    t[NW] = (uint32_t)s;
-    t[NW + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * c.inv;
-    s = (uint64_t)t[0] + (uint64_t)m * c.p[0];
-    carry = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NW; ++j) {
-      s = (uint64_t)t[j] + (uint64_t)m * c.p[j] + carry;
-      t[j - 1] = (uint32_t)s;
-      carry = s >> 32;
-    }
-    s = (uint64_t)t[NW] + carry;
-    t[NW - 1] = (uint32_t)s;
-    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
+  for (int k = 0; k < NW; ++k) {
+    m.p.w[k] = c.p[k];
+    m.twop.w[k] = c.twop[k];
   }
-  if (c.post) reduce_2p<NW>(t, t[NW], c);
+  m.inv = c.inv;
+  m.post = c.post;
+  return m;
+}
+
+template <int NW>
+__device__ __forceinline__ FieldConsts field_consts(const MulConsts<NW>& m) {
+  FieldConsts c;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = t[k];
+  for (int k = 0; k < NW; ++k) {
+    c.p[k] = m.p.w[k];
+    c.twop[k] = m.twop.w[k];
+  }
+  c.inv = m.inv;
+  c.post = m.post;
+  return c;
+}
+
+template <int NW>
+__device__ __noinline__ Fe<NW> mul_call(Fe<NW> a, Fe<NW> b, MulConsts<NW> m) {
+  Fe<NW> r;
+  fe_mul<NW>(r, a, b, field_consts<NW>(m));
+  return r;
+}
+
+template <int NW>
+__device__ __forceinline__ void base_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b,
+                                         const FieldConsts& c) {
+  r = mul_call<NW>(a, b, mul_consts<NW>(c));
+}
+
+template <int NW>
+__device__ __forceinline__ void fe_select(Fe<NW>& r, bool first, const Fe<NW>& a, const Fe<NW>& b) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = first ? a.w[k] : b.w[k];
 }
 
 template <int NW, int K>
-struct Fp2 {
-  struct E {
-    Fe<NW> c0, c1;
-  };
+struct Fp2Pair {
+  using E = Fe<NW>;  // this lane's component of an Fq2 value
   static constexpr int WORDS = 2 * NW;
+  static constexpr int LANES = 2;
+
+  // The component this lane holds (blocks are a whole number of warps).
+  static __device__ __forceinline__ bool odd() { return threadIdx.x & 1u; }
+  // The pair's two lanes: pairs of one warp may be on different branches.
+  static __device__ __forceinline__ unsigned pair_mask() { return 3u << (threadIdx.x & 30u); }
+
+  // The other lane's component of a.
+  static __device__ __forceinline__ void other(E& r, const E& a) {
+    const unsigned m = pair_mask();
+#pragma unroll
+    for (int k = 0; k < NW; ++k) r.w[k] = __shfl_xor_sync(m, a.w[k], 1);
+  }
 
   // K t by the addition chain of ec_lf.py::_fx_quad's ``small``.
-  static __device__ __forceinline__ void small(Fe<NW>& r, const Fe<NW>& t, const FieldConsts& c) {
-    Fe<NW> cur = t;
+  static __device__ __forceinline__ void small(E& r, const E& t, const FieldConsts& c) {
+    E cur = t;
     bool have = false;
 #pragma unroll
     for (int kk = K; kk; kk >>= 1) {
@@ -86,67 +119,77 @@ struct Fp2 {
     }
   }
 
-  // Karatsuba: 3 base products; c0 = a0 b0 - K a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1.
+  // Karatsuba: c0 = a0 b0 - K a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1.
+  // a0 + a1 is the same word sum on both lanes, whichever operand is first.
   static __device__ __forceinline__ void mul(E& r, const E& a, const E& b, const FieldConsts& c) {
-    Fe<NW> t0, t1, s, u, v;
-    mul_rolled<NW>(t0, a.c0, b.c0, c);
-    mul_rolled<NW>(t1, a.c1, b.c1, c);
-    fe_add<NW>(u, a.c0, a.c1, c);
-    fe_add<NW>(v, b.c0, b.c1, c);
-    mul_rolled<NW>(s, u, v, c);
-    small(u, t1, c);
-    fe_sub<NW>(r.c0, t0, u, c);
-    fe_sub<NW>(s, s, t0, c);
-    fe_sub<NW>(r.c1, s, t1, c);
+    E x, u, v, t, s;
+    other(x, a);
+    fe_add<NW>(u, a, x, c);
+    other(x, b);
+    fe_add<NW>(v, b, x, c);
+    base_mul<NW>(t, a, b, c);  // t0 on lane 0, t1 on lane 1
+    base_mul<NW>(s, u, v, c);
+    other(x, t);
+    small(u, x, c);          // lane 0: K t1
+    fe_sub<NW>(s, s, x, c);  // lane 1: s - t0
+    const bool o = odd();
+    fe_select<NW>(u, o, t, u);
+    fe_select<NW>(s, o, s, t);
+    fe_sub<NW>(r, s, u, c);  // lane 0: t0 - K t1; lane 1: (s - t0) - t1
   }
 
+  // nr = -1: c0 = (a0 + a1)(a0 - a1) on lane 0, c1 = 2 a0 a1 on lane 1, one
+  // product a lane. Otherwise c0 = a0^2 - K a1^2, c1 = 2 a0 a1.
   static __device__ __forceinline__ void sqr(E& r, const E& a, const FieldConsts& c) {
-    Fe<NW> r0, t, u;
-    if (K == 1) {  // (a0 + a1)(a0 - a1)
-      fe_add<NW>(t, a.c0, a.c1, c);
-      fe_sub<NW>(u, a.c0, a.c1, c);
-      mul_rolled<NW>(r0, t, u, c);
+    E x, u, v, t;
+    const bool o = odd();
+    other(x, a);
+    if (K == 1) {
+      fe_add<NW>(u, a, x, c);
+      fe_sub<NW>(v, a, x, c);
+      fe_select<NW>(u, o, x, u);  // lane 1: a0
+      fe_select<NW>(v, o, a, v);  // lane 1: a1
+      base_mul<NW>(t, u, v, c);
+      fe_add<NW>(u, t, t, c);
+      fe_select<NW>(r, o, u, t);
     } else {
-      mul_rolled<NW>(t, a.c0, a.c0, c);
-      mul_rolled<NW>(u, a.c1, a.c1, c);
-      small(r0, u, c);
-      fe_sub<NW>(r0, t, r0, c);
+      base_mul<NW>(u, a, a, c);  // a_j^2
+      other(v, u);
+      small(v, v, c);
+      fe_sub<NW>(v, u, v, c);    // lane 0: a0^2 - K a1^2
+      fe_select<NW>(u, o, x, a);  // a0 on both lanes
+      fe_select<NW>(x, o, a, x);  // a1 on both lanes
+      base_mul<NW>(t, u, x, c);
+      fe_add<NW>(u, t, t, c);
+      fe_select<NW>(r, o, u, v);
     }
-    mul_rolled<NW>(t, a.c0, a.c1, c);
-    r.c0 = r0;
-    fe_add<NW>(r.c1, t, t, c);
   }
 
   static __device__ __forceinline__ void add(E& r, const E& a, const E& b, const FieldConsts& c) {
-    fe_add<NW>(r.c0, a.c0, b.c0, c);
-    fe_add<NW>(r.c1, a.c1, b.c1, c);
+    fe_add<NW>(r, a, b, c);
   }
   static __device__ __forceinline__ void sub(E& r, const E& a, const E& b, const FieldConsts& c) {
-    fe_sub<NW>(r.c0, a.c0, b.c0, c);
-    fe_sub<NW>(r.c1, a.c1, b.c1, c);
+    fe_sub<NW>(r, a, b, c);
   }
+  // Both components zero: the same answer on both lanes.
   static __device__ __forceinline__ bool is_zero(const E& a, const FieldConsts& c) {
-    return fe_is_zero<NW>(a.c0, c) && fe_is_zero<NW>(a.c1, c);
+    return __all_sync(pair_mask(), fe_is_zero<NW>(a, c));
   }
   static __device__ __forceinline__ void set_one(E& r, const FieldConsts& c) {
-    fe_set_one<NW>(r.c0, c);
-    fe_set_zero<NW>(r.c1);
+    const bool o = odd();
+#pragma unroll
+    for (int k = 0; k < NW; ++k) r.w[k] = o ? 0u : c.one[k];
   }
-  static __device__ __forceinline__ void set_zero(E& r) {
-    fe_set_zero<NW>(r.c0);
-    fe_set_zero<NW>(r.c1);
-  }
+  static __device__ __forceinline__ void set_zero(E& r) { fe_set_zero<NW>(r); }
   static __device__ __forceinline__ void load(E& r, const int32_t* base, int64_t n, int64_t i) {
-    fe_load<NW>(r.c0, base, n, i);
-    fe_load<NW>(r.c1, base + (int64_t)(2 * NW) * n, n, i);
+    fe_load<NW>(r, base + (odd() ? (int64_t)(2 * NW) * n : 0), n, i);
   }
-  static __device__ __forceinline__ void load_packed(E& r, const int32_t* base, int64_t n, int64_t i, int row0) {
-    fe_load_packed<NW>(r.c0, base, n, i, row0);
-    fe_load_packed<NW>(r.c1, base, n, i, row0 + NW);
+  static __device__ __forceinline__ void load_packed(E& r, const int32_t* base, int64_t n, int64_t i,
+                                                     int row0) {
+    fe_load_packed<NW>(r, base, n, i, row0 + (odd() ? NW : 0));
   }
   static __device__ __forceinline__ void store(int32_t* base, int64_t n, int64_t i, const E& a) {
-    fe_store<NW>(base, n, i, a.c0);
-    fe_store<NW>(base + (int64_t)(2 * NW) * n, n, i, a.c1);
+    fe_store<NW>(base + (odd() ? (int64_t)(2 * NW) * n : 0), n, i, a);
   }
 };
 
@@ -162,9 +205,9 @@ extern "C" int pc_ec_g2_op(int which, int nw, int k, void* const* ins, void* con
   ec_args(a, c, ins, outs, consts);
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (nw == 12 && k == 1) rc = ec_launch<Fp2<12, 1>>(which, a, n, c, s);
-  else if (nw == 12 && k == 5) rc = ec_launch<Fp2<12, 5>>(which, a, n, c, s);
-  else if (nw == 8 && k == 1) rc = ec_launch<Fp2<8, 1>>(which, a, n, c, s);
+  if (nw == 12 && k == 1) rc = ec_launch<Fp2Pair<12, 1>>(which, a, n, c, s);
+  else if (nw == 12 && k == 5) rc = ec_launch<Fp2Pair<12, 5>>(which, a, n, c, s);
+  else if (nw == 8 && k == 1) rc = ec_launch<Fp2Pair<8, 1>>(which, a, n, c, s);
   else return -1;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

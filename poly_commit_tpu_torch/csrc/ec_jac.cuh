@@ -1,6 +1,7 @@
 // Jacobian formulas on y^2 = x^3 + b (a = 0), generic over the coordinate
-// field: one thread per point, every temporary in registers. K2a
-// (ec_g1.cu) instantiates them over Fq, K2c (ec_g2.cu) over Fq2. They replace
+// field: F::LANES threads per point, every temporary in registers. K2a
+// (ec_g1.cu) instantiates them over Fq (one thread a point), K2c (ec_g2.cu)
+// over Fq2 (a pair of lanes a point, one per component). They replace
 // the Weierstrass entries of poly_commit_tpu/core/ec_lf.py::_ec_fn
 // (madd-2007-bl, its distinct and packed variants, add-2007-bl made complete
 // by edge cases, dbl-2009-l) and compute what its formulas compute, with a
@@ -9,7 +10,10 @@
 // A field policy F gives the element type F::E, its arithmetic (mul, sqr,
 // add, sub, is_zero, set_one, set_zero: the same operation sequence as the
 // port's plain versions, so results agree bit for bit), F::WORDS packed
-// 32-bit rows per coordinate, and load/store.
+// 32-bit rows per coordinate, F::LANES threads per point, and load/store.
+// With more than one lane per point, F::is_zero gives every lane of the
+// point the same answer, so the lanes of a point take the same branch of
+// the complete formulas (lanes of different points may not).
 #pragma once
 
 #include <cstring>
@@ -28,6 +32,7 @@ template <int NW>
 struct Fp {
   using E = Fe<NW>;
   static constexpr int WORDS = NW;
+  static constexpr int LANES = 1;
   static __device__ __forceinline__ void mul(E& r, const E& a, const E& b, const FieldConsts& c) {
     fe_mul<NW>(r, a, b, c);
   }
@@ -202,10 +207,16 @@ __device__ __forceinline__ void load_pt(Pt<F>& p, const int32_t* const* in, int6
   F::load(p.z, in[2], n, i);
 }
 
+constexpr int EC_BLOCK = 128;
+
+// Point i = thread / F::LANES. Threads past the last point do not return:
+// they compute point n - 1 again and store nothing, so every lane stays
+// alive for the exchanges inside F's arithmetic.
 template <class F, int WHICH>
-__global__ void __launch_bounds__(128) k_ec(EcArgs a, int64_t n, FieldConsts c) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(EC_BLOCK) k_ec(EcArgs a, int64_t n, FieldConsts c) {
+  int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / F::LANES;
+  const bool live = i < n;
+  if (!live) i = n - 1;
   Pt<F> p, o;
   load_pt<F>(p, a.in, n, i);
   if (WHICH == DOUBLE) {
@@ -226,6 +237,7 @@ __global__ void __launch_bounds__(128) k_ec(EcArgs a, int64_t n, FieldConsts c) 
     constexpr bool complete = (WHICH == MADD || WHICH == MADD_PACKED);
     pt_madd<F, complete>(o, p, x2, y2, c);
   }
+  if (!live) return;
   F::store(a.out[0], n, i, o.x);
   F::store(a.out[1], n, i, o.y);
   F::store(a.out[2], n, i, o.z);
@@ -234,14 +246,14 @@ __global__ void __launch_bounds__(128) k_ec(EcArgs a, int64_t n, FieldConsts c) 
 // Launches formula ``which`` over n points; -1 for an unknown formula.
 template <class F>
 int ec_launch(int which, const EcArgs& a, int64_t n, const FieldConsts& c, cudaStream_t s) {
-  dim3 grid((unsigned)((n + 127) / 128));
+  dim3 grid((unsigned)((n * F::LANES + EC_BLOCK - 1) / EC_BLOCK));
   switch (which) {
-    case MADD: k_ec<F, MADD><<<grid, 128, 0, s>>>(a, n, c); break;
-    case MADD_DISTINCT: k_ec<F, MADD_DISTINCT><<<grid, 128, 0, s>>>(a, n, c); break;
-    case MADD_PACKED: k_ec<F, MADD_PACKED><<<grid, 128, 0, s>>>(a, n, c); break;
-    case MADD_DISTINCT_PACKED: k_ec<F, MADD_DISTINCT_PACKED><<<grid, 128, 0, s>>>(a, n, c); break;
-    case ADD: k_ec<F, ADD><<<grid, 128, 0, s>>>(a, n, c); break;
-    case DOUBLE: k_ec<F, DOUBLE><<<grid, 128, 0, s>>>(a, n, c); break;
+    case MADD: k_ec<F, MADD><<<grid, EC_BLOCK, 0, s>>>(a, n, c); break;
+    case MADD_DISTINCT: k_ec<F, MADD_DISTINCT><<<grid, EC_BLOCK, 0, s>>>(a, n, c); break;
+    case MADD_PACKED: k_ec<F, MADD_PACKED><<<grid, EC_BLOCK, 0, s>>>(a, n, c); break;
+    case MADD_DISTINCT_PACKED: k_ec<F, MADD_DISTINCT_PACKED><<<grid, EC_BLOCK, 0, s>>>(a, n, c); break;
+    case ADD: k_ec<F, ADD><<<grid, EC_BLOCK, 0, s>>>(a, n, c); break;
+    case DOUBLE: k_ec<F, DOUBLE><<<grid, EC_BLOCK, 0, s>>>(a, n, c); break;
     default: return -1;
   }
   return 0;

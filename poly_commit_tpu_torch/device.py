@@ -5,7 +5,9 @@ Entry points take ``device=None`` and then run on ``DEFAULT_DEVICE``
 ``csrc/`` as CUDA C++ with a plain C interface. At first use each source is
 compiled by nvcc for sm_90a into a shared library under ``_build/`` (named by
 a hash of the sources, so an edit rebuilds it) and loaded with ctypes.
-``build()`` starts one nvcc per source, all at once, and waits for them.
+``build()`` starts one nvcc per source, all at once, and waits for them;
+``BUILD_SECONDS`` keeps each source's nvcc wall seconds and
+``ptxas_report`` reads the registers and spills ptxas printed per kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
+BUILD_SECONDS: dict = {}  # source -> nvcc wall seconds of its build in this process
 
 
 def resolve(device=None) -> torch.device:
@@ -97,17 +101,83 @@ def build(names=SOURCES) -> float:
         procs.append((name, out, tmp, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []
-    for name, out, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(name)
+    pending = list(procs)
+    while pending:
+        for item in list(pending):
+            name, out, tmp, log, proc = item
+            rc = proc.poll()
+            if rc is None:
+                continue
+            pending.remove(item)
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            log.close()
+            if rc == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(name)
+        if pending:
+            time.sleep(0.05)
     if failed:
         msgs = [(BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed]
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(msgs))
     return time.perf_counter() - t0
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _demangle(names: list) -> list:
+    """C++ names through the toolkit's cu++filt, where there is one."""
+    try:
+        filt = Path(nvcc_path()).with_name("cu++filt")
+        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (RuntimeError, OSError, subprocess.CalledProcessError):
+        return names
+    return out if len(out) == len(names) else names
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel entry in an nvcc -Xptxas -v log, and per device function
+    compiled as a call (``"call": True``): its name (demangled, without the
+    parameter list, where the toolkit can), the registers a kernel's thread
+    uses, and the stack frame and spill bytes."""
+    records, by_name, entry, current = [], {}, None, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = by_name[m.group(1)] = {"entry": m.group(1)}
+            records.append(entry)
+            continue
+        m = _PROPS.search(line)
+        if m:
+            current = by_name.get(m.group(1))
+            if current is None:  # a device function compiled as a call
+                current = by_name[m.group(1)] = {"entry": m.group(1), "call": True}
+                records.append(current)
+            continue
+        m = _FRAME.search(line)
+        if m and current is not None:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            continue
+        m = _REGS.search(line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+    names = _demangle([r["entry"] for r in records]) if records else []
+    for r, name in zip(records, names):
+        name = name.replace("(int)", "").replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+        r["entry"] = name.split("(")[0].removeprefix("void ")
+    return records
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for source ``name`` from its last build here."""
+    path = BUILD_DIR / f"{name}.log"
+    return path.read_text() if path.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

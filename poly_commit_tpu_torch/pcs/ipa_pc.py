@@ -14,9 +14,9 @@ Counterpart of poly_commit_tpu/pcs/ipa_pc.py (the reference's ipa_pc/mod.rs):
 The vector work runs on the device of the key: every Pedersen MSM (kernels
 K3 and K2b), the inner products and folds of the coefficients and the
 powers of z (K1 on the JubJub scalar field), and the key fold
-key_l + ch key_r of each round, whose scalar multiplication runs on K2b
-through ``JUBJUB.scalar_mul`` (the JAX package runs that fold through its
-portable scan). Hash-to-curve, the transcript and the verifier's O(log d)
+key_l + ch key_r of each round, whose scalar multiplication is one K2b
+``ed_smul`` launch through ``JUBJUB.scalar_mul`` (the JAX package runs that
+fold through its portable scan). Hash-to-curve, the transcript and the verifier's O(log d)
 accumulation run on host ints, as do the h' terms of each round's L and R
 (one point each). The shifted-key commitment is a shifted polynomial
 against the full key (the same group element). The LC methods
@@ -243,8 +243,8 @@ def _cm_commit(key_aff, coeffs_mont, s_host=None, randomizer=None):
 
 
 def fold_key(k_l, k_r, ch: int):
-    """key_l + ch key_r over two device affine halves of the key: a scalar
-    multiplication on K2b, one add, one batched normalisation."""
+    """key_l + ch key_r over two device affine halves of the key: one K2b
+    ``ed_smul`` launch, one add, one batched normalisation."""
     kr_mul = GROUP.scalar_mul(GROUP.from_affine(*k_r), ch)
     return GROUP.to_affine(GROUP.add(GROUP.from_affine(*k_l), kr_mul))
 

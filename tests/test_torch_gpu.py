@@ -158,6 +158,86 @@ def test_edwards_kernel_matches_plain(cuda, which):
         assert torch.equal(g.cpu(), w)
 
 
+def _head(coords, n):
+    return tuple(t[:, :n].contiguous() for t in coords)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 77])  # a pair of lanes a point: 64 points a block
+@pytest.mark.parametrize("which", FORMULAS)
+def test_g2_kernel_tail_matches_plain(cuda, which, n):
+    """K2c at an odd n that does not fill its last block: the lanes past
+    the last point stay in the pair exchanges and store nothing."""
+    spec = FP.FQ_BLS12_381
+    P, Q = (_head(t, n) for t in _g2_edge_case(spec, max(n, 4), 17))
+    args = {"double": (), "add": (Q,), "madd_packed": (ec_lf.pack(Q[0], Q[1]),),
+            "madd_distinct_packed": (ec_lf.pack(Q[0], Q[1]),)}
+    a = args.get(which, Q[:2])
+    flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
+    got = getattr(ec_lf, f"g2_{which}")(spec, _to(P, cuda), *_to(a, cuda))
+    torch.cuda.synchronize()
+    want = ec_lf.plain(f"g2_{which}", spec, *P, *flat)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _ed_points(n, seed):
+    """Random lazy JubJub coordinates (4 of (16, n)) with lane 0 the
+    identity and lane 2 the negation of lane 1 (where n allows)."""
+    spec = FP.JUBJUB_FQ
+    P = [_field(spec, n, seed + k) for k in range(4)]
+    ident = ec_lf.ed_infinity(spec, 1, "cpu")
+    for k in range(4):
+        P[k][:, 0] = ident[k][:, 0]
+    if n > 2:
+        neg = ec_lf.ed_neg(spec, tuple(t[:, 1:2].contiguous() for t in P))
+        for k in range(4):
+            P[k][:, 2] = neg[k][:, 0]
+    return tuple(P)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 45])  # four lanes a point: 32 points a block
+@pytest.mark.parametrize("which", ["ed_madd", "ed_madd_packed", "ed_add", "ed_double"])
+def test_edwards_kernel_tail_matches_plain(cuda, which, n):
+    """K2b at an odd n that does not fill its last block."""
+    spec = FP.JUBJUB_FQ
+    P, Q = _ed_points(n, 40), _ed_points(n, 50)
+    args = {"ed_madd": Q[:2], "ed_madd_packed": (ec_lf.pack(Q[0], Q[1]),), "ed_add": (Q,),
+            "ed_double": ()}[which]
+    got = getattr(ec_lf, which)(spec, _to(P, cuda), *_to(args, cuda))
+    torch.cuda.synchronize()
+    flat = [t for x in args for t in (x if isinstance(x, tuple) else (x,))]
+    want = ec_lf.plain(which, spec, *P, *flat)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 45, 1001])
+@pytest.mark.parametrize("k", [0, 1, (1 << 251) + 1, 0xDEADBEEF << 220 | 12345, (1 << 256) - 1],
+                         ids=["k0", "k1", "k2^251+1", "k252bit", "k256ones"])
+def test_ed_smul_kernel_matches_plain(cuda, k, n):
+    """The one-launch ladder equals its plain version bit for bit, edge
+    lanes (the identity, P and -P) included, and equals the chain of
+    ed_double / ed_add launches it replaces."""
+    spec = FP.JUBJUB_FQ
+    P = _ed_points(n, 60)
+    got = ec_lf.ed_smul(spec, _to(P, cuda), k)
+    torch.cuda.synchronize()
+    want = ec_lf.ed_smul_plain(spec, P, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if n == 45:
+        acc = ec_lf.ed_infinity(spec, n, cuda)
+        for bit in bin(k)[2:] if k else "":
+            acc = ec_lf.ed_double(spec, acc)
+            if bit == "1":
+                acc = ec_lf.ed_add(spec, acc, _to(P, cuda))
+        for g, w in zip(got, acc):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("spec", [FP.FQ_BLS12_381, FP.FQ_BLS12_377, FP.FR_BLS12_381, FP.FQ_BN254],
                          ids=lambda s: s.name)
