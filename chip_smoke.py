@@ -12,17 +12,25 @@ Phases, one JSON line each (times in ms):
      fields, the BN254 scalar field and the BLS12-377 base field; K1's
      power, the Fermat chain of every batched inversion, on the BLS12-381
      base and scalar fields at 1 and 2^12 columns, and one batch_inv's
-     launches; K2a the six G1 formulas; K3, the stable digit sort, index
-     for index at the 2^20 MSM's (16, 2^20) keys and the c = 8 MSMs'
-     (32, 2^15); K4a/K4b/K4c the NTT stages on the BN254 and BLS12-381
-     scalar fields), with the kernel's, the plain version's and, where one
-     PyTorch call computes the same function, that call's time;
+     launches; K2a the six G1 formulas and madd_scan, the MSM's
+     within-lane scan in one launch, bit for bit at the 2^20 MSM's 256
+     steps x 2^16 lanes (the complete madd's edge lanes at 16 steps) and
+     timed beside the loop of launches it replaced; K3,
+     the stable digit sort, index for index at the 2^20 MSM's (16, 2^20)
+     keys and the c = 8 MSMs' (32, 2^15); K4a/K4b/K4c the NTT stages on the
+     BN254 and BLS12-381 scalar fields, K4c four stages in one launch
+     beside the chain of one-stage launches), with the kernel's, the plain
+     version's and, where one PyTorch call computes the same function,
+     that call's time;
   3. a 2^12-point MSM against the host big-int oracle;
   4. the main path: MarlinKZG10 over BLS12-381 setup(2^20 - 1) -> trim ->
      commit (hiding) -> batch_open -> batch_check, the opened value checked
      against host Horner evaluation, a tampered value rejected, and the
-     launch count of every kernel over the run; then the check stage's two
-     MSMs and its pairing, timed apart on the same inputs;
+     launch count of every kernel over the run (the G1 MSMs in one
+     madd_scan each, so at most 8 madd_distinct_packed launches); commit
+     once more under torch.profiler (the device-busy share of its wall time
+     and its five largest kernels by device time); then the check stage's
+     two MSMs and its pairing, timed apart on the same inputs;
   5. ntt: a 2^22-point NTT and iNTT over BN254 Fr (K4b + K4c) and a 2^9 one
      (K4a), against the portable field-last route, the round trip and host
      Horner at four points;
@@ -38,8 +46,10 @@ Phases, one JSON line each (times in ms):
      batch_check, the value against host Horner, a tampered value rejected;
      then open again with its MSMs, their host window folds and the key
      folds timed apart.
-Phase 1 also prints a build line: each kernel source's nvcc seconds and,
-per kernel entry, the registers and spill bytes ptxas reported. Phase 2
+Phase 1 also prints a build line: each kernel source's nvcc seconds, per
+kernel entry the registers and spill bytes ptxas reported, and the
+machine instructions (and integer multiply-adds) of the K1, K2a and K4
+kernels from cuobjdump. Phase 2
 also holds K2c (the six G2 formulas on the BLS12-381 and BLS12-377 Fq2)
 and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
@@ -49,7 +59,9 @@ Phases 4-8 are the paths: each runs with every launch count set to 0 just
 before it and read just after; the kernel table sums them. Each path's
 line also splits K1's launches by columns (1, under 2^16, 2^16 and up),
 and a k1_launches line sums that split over the paths.
-Then the kernel table, the nvidia-smi line, and {"ok": true, "device": ...}.
+A k4c_launches line sums K4c's launches over phases 4-8 (at most 20 with
+several stages a launch). Then the kernel table, the nvidia-smi line, and
+{"ok": true, "device": ...}.
 Any failure exits non-zero; so does a machine without a CUDA device.
 """
 
@@ -57,10 +69,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 IMAD_PER_SM_PER_CLK = 64  # 32-bit integer multiply-add, compute capability 9.0
@@ -85,7 +99,8 @@ def nvidia_smi(fields):
 
 
 def time_ms(fn, reps):
-    """Device time of one call, from CUDA events around ``reps`` calls."""
+    """Device time of one call, from CUDA events around ``reps`` calls
+    (after one call to warm up)."""
     import torch
 
     fn()
@@ -97,6 +112,51 @@ def time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def run_ms(fn):
+    """fn()'s result and the device time of that one call, cold, from CUDA
+    events (for a plain version too slow to run twice)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+SASS_INSTR = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_counts(path):
+    """Per kernel in a built library, from the toolkit's ``cuobjdump -sass``:
+    its machine instructions (every function it calls included, as
+    cuobjdump lists them with the kernel) and, of those, the integer
+    multiply-adds (IMAD*, without the IMAD.MOV moves). Empty where the
+    toolkit has no cuobjdump."""
+    from poly_commit_tpu_torch import device as D
+
+    tool = Path(D.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = SASS_FUNCTION.match(line)
+        if m:
+            current = counts.setdefault(m.group(1), {"instructions": 0, "imad": 0})
+            continue
+        m = SASS_INSTR.match(line)
+        if m and current is not None:
+            current["instructions"] += 1
+            op = m.group(1)
+            current["imad"] += op.startswith("IMAD") and not op.startswith("IMAD.MOV")
+    return dict(zip(D.kernel_names(list(counts)), counts.values()))
 
 
 def graph_ms(fn, reps):
@@ -175,9 +235,15 @@ class Smoke:
     # BLS12-381's mul and add for UnivariateLigero
     LIGERO_FF = {"ml": ("ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]", "ff_sub[fr_bn254]"),
                  "uni": ("ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")}
-    NTT_KERNELS = ("ntt_butterfly", "ntt_fused_stages", "ntt_stage")
+    NTT_KERNELS = ("ntt_butterfly", "ntt_fused_stages", "ntt_stages")
     # phase 2's K4 shape: Ligero's 256 rows of 2^15 points, and K4a's pairs
     NTT_KERNEL_SHAPE = (1 << 23, 15, 1 << 21)
+    # the K2a entries the main path runs: fixed-base setup's madd and
+    # madd_distinct, the MSMs' scan, the lane tree's and Abel sums' add, and
+    # setup's doublings (the packed formulas ran the scan before madd_scan)
+    MAIN_PATH_EC = ("ec_madd", "ec_madd_distinct", "ec_add", "ec_double", "ec_madd_scan")
+    MAX_K4C_LAUNCHES = 20  # phases 4-8, with several K4c stages a launch
+    MAX_PACKED_MADD_LAUNCHES = 8  # phase 4: the G1 MSMs scan in madd_scan
 
     def __init__(self):
         import torch
@@ -202,6 +268,7 @@ class Smoke:
         }
         ntt_src = "poly_commit_tpu_torch/csrc/ntt.cu"
         self.sources = {"ff": "poly_commit_tpu_torch/csrc/ff.cu",
+                        "scan": "poly_commit_tpu_torch/csrc/ec_g1.cu",
                         "pow": "poly_commit_tpu_torch/csrc/ff.cu",
                         "ec": "poly_commit_tpu_torch/csrc/ec_g1.cu",
                         "g2": "poly_commit_tpu_torch/csrc/ec_g2.cu",
@@ -213,6 +280,8 @@ class Smoke:
         self.replaces = {"ff": "poly_commit_tpu/core/ff.py:293",
                          "pow": "poly_commit_tpu/core/ff.py:293",
                          "ec": "poly_commit_tpu/core/ec_lf.py:455",
+                         # madd_scan: msm_tpu.py:506's lax.scan runs K2a once a step
+                         "scan": "poly_commit_tpu/core/ec_lf.py:455",
                          "g2": "poly_commit_tpu/core/ec_lf.py:455",
                          "ed": "poly_commit_tpu/core/ec_lf.py:455",
                          "digit": "poly_commit_tpu/core/sort_tpu.py:141",
@@ -319,12 +388,21 @@ class Smoke:
               "imad_per_s": self.imad_per_s, "torch": tool["torch"], "cuda": tool["cuda"],
               "nvcc": tool["nvcc"], "triton": tool["triton"], "build_ms": build_s * 1e3})
         ptxas = {name: D.ptxas_report(D.build_log(name)) for name in D.SOURCES}
-        # K2c at 12 words (BLS12-381/377 Fq2), its kernels and the calls
-        # they make: the redesign's target is no spills
-        g2_12 = [e for e in ptxas["ec_g2"] if "<12" in e["entry"] or "ILi12E" in e["entry"]]
-        spills = sum(e.get("spill_stores", 0) + e.get("spill_loads", 0) for e in g2_12)
+
+        def nw12(entries):  # the 12-word (BLS12-381/377) kernels and the calls they make
+            return [e for e in entries if "<12" in e["entry"] or "ILi12E" in e["entry"]]
+
+        def spill_bytes(entries):
+            return sum(e.get("spill_stores", 0) + e.get("spill_loads", 0) for e in entries)
+
+        g1_12, g2_12 = nw12(ptxas["ec_g1"]), nw12(ptxas["ec_g2"])
+        # machine instructions per kernel (the product's body counted in each
+        # kernel that calls or inlines it)
+        sass = {name: sass_counts(D.library_path(name)) for name in ("ff", "ec_g1", "ntt")}
         emit({"phase": "build", "nvcc_s": D.BUILD_SECONDS, "ptxas": ptxas,
-              "g2_nw12_entries": len(g2_12), "g2_nw12_spill_bytes": spills})
+              "g1_nw12_entries": len(g1_12), "g1_nw12_spill_bytes": spill_bytes(g1_12),
+              "g2_nw12_entries": len(g2_12), "g2_nw12_spill_bytes": spill_bytes(g2_12),
+              "sass": sass})
         return name_power
 
     # -- phase 2 ----------------------------------------------------------
@@ -497,6 +575,8 @@ class Smoke:
         ok = True
         for fn in ec_lf.WRAPPERS:
             which = fn.__name__
+            if which not in args:  # madd_scan: check_ec_scan
+                continue
             a = args[which]
             flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
             got = fn(spec, P, *a)
@@ -511,16 +591,103 @@ class Smoke:
             finite = n - 1
             muls = field_muls[which] * finite + (7 if which in ("madd", "madd_packed", "add") else 0)
             n_bytes = (in_coords[which] + 3) * spec.n_limbs * 4 * n
-            bounds = self.entry(f"ec_{which}", "ec", err, ms, plain_ms, n_bytes, muls * (4 * nw * nw + nw))
-            emit({"phase": "kernels", "kernel": f"ec_{which}", "n": n, "max_abs_err": err, "ms": ms,
-                  "plain_ms": plain_ms, **bounds})
+            n_imad = muls * (4 * nw * nw + nw)
+            name = f"ec_{which}"
+            device_ms = graph_ms(lambda: fn(spec, P, *a), 20)
+            if name in self.OFF_PATH:
+                bounds = self.bound(n_bytes, n_imad)
+            else:
+                bounds = self.entry(name, "ec", err, ms, plain_ms, n_bytes, n_imad)
+            emit({"phase": "kernels", "kernel": name, "n": n, "max_abs_err": err, "ms": ms,
+                  "device_ms": device_ms, "plain_ms": plain_ms, **bounds})
+        return ok and self.check_ec_scan()
+
+    SCAN_LANES = 1 << 16  # 16 windows x 4096 lanes, the 2^20 MSM's
+    SCAN_STEPS = 256  # 2^20 points / 4096 lanes
+    SCAN_EDGE_STEPS = 16  # the complete madd's edge lanes
+    SCAN_TABLE = 1 << 20
+
+    def check_ec_scan(self):
+        """K2a's one-launch within-lane scan against its plain version, bit
+        for bit on the raw limbs of every prefix and the final sums. At 256
+        steps x 2^16 lanes (the 2^20 MSM's shape) with the distinct madd, as
+        the main path runs it; the plain run is also its timed one. At
+        SCAN_EDGE_STEPS x 2^16 lanes with the distinct and the complete
+        madd, for the edge lanes. The table holds random lazy coordinates,
+        row 2^20 - 1 the negation of row 0; lane 0 skips every step, lane 1
+        adds row 5 twice from infinity (a doubling in the complete madd),
+        lane 2 adds row 0 then its negation (back to infinity). The kernel
+        is also timed beside the loop of madd_distinct_packed launches it
+        replaced (``chain_ms``, its prefixes held equal too)."""
+        from poly_commit_tpu_torch.core import ec_lf, ff
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        torch = self.torch
+        spec = FP.FQ_BLS12_381
+        lanes, steps, n_pts = self.SCAN_LANES, self.SCAN_STEPS, self.SCAN_TABLE
+        x, y = self.lazy(spec, n_pts), self.lazy(spec, n_pts)
+        y[:, -1] = ff.plain("sub", spec, torch.zeros_like(y[:, :1]), y[:, :1].contiguous())[:, 0]
+        x[:, -1] = x[:, 0]
+        packed = ec_lf.pack(x, y)  # (L, N) limbs-first words: the loop's gather
+        table = packed.T.contiguous()  # (N, L) point-major: the kernel's
+        del x, y
+        idx = torch.randint(0, n_pts, (steps, lanes), generator=self.gen, device=self.dev,
+                            dtype=torch.int32)
+        keep = torch.rand((steps, lanes), generator=self.gen, device=self.dev) < 0.9
+        keep[:, 0] = False
+        keep[:2, 1:3] = True
+        idx[:2, 1] = 5
+        idx[0, 2], idx[1, 2] = 0, n_pts - 1
+
+        def err(got, want):
+            return max(int((g.long() - w.long()).abs().max())
+                       for g, w in zip((*got[0], got[1]), (*want[0], want[1])))
+
+        ok = True
+        errs = {}
+        k = self.SCAN_EDGE_STEPS
+        for distinct in (True, False):
+            few_idx, few_keep = idx[:k].contiguous(), keep[:k].contiguous()
+            e = err(ec_lf.madd_scan(spec, table, few_idx, few_keep, distinct),
+                    ec_lf.madd_scan_plain(spec, table, few_idx, few_keep, distinct))
+            errs[f"distinct_{k}_steps" if distinct else f"complete_{k}_steps"] = e
+            ok &= e == 0
+        got = ec_lf.madd_scan(spec, table, idx, keep, True)
+        want, plain_ms = run_ms(lambda: ec_lf.madd_scan_plain(spec, table, idx, keep, True))
+        errs[f"distinct_{steps}_steps"] = err(got, want)
+        del want
+        chain = ec_lf.scan_loop(lambda p, g: ec_lf.madd_distinct_packed(spec, p, g),
+                                ec_lf.infinity(spec, lanes, self.dev), packed, idx, keep)
+        chain_err = err(got, chain)
+        ok &= errs[f"distinct_{steps}_steps"] == 0 and chain_err == 0
+        del got, chain
+        ms = time_ms(lambda: ec_lf.madd_scan(spec, table, idx, keep, True), 5)
+        chain_ms = time_ms(lambda: ec_lf.scan_loop(
+            lambda p, g: ec_lf.madd_distinct_packed(spec, p, g),
+            ec_lf.infinity(spec, lanes, self.dev), packed, idx, keep), 2)
+        # least bytes: the table (already 2 bytes a limb), idx and keep read
+        # once, the prefixes written once at 2 bytes a limb; operations: 11
+        # products at every kept step but a lane's first (from infinity the
+        # madd copies the point)
+        nw = spec.n_limbs // 2
+        kept = int(keep.sum())
+        first = int(keep.any(0).sum())
+        n_imad = 11 * (kept - first) * IMAD_PER_FQ_PRODUCT
+        n_bytes = n_pts * 2 * nw * 4 + steps * lanes * 5 + 3 * spec.n_limbs * steps * lanes * 2
+        bounds = self.entry("ec_madd_scan", "scan", max(errs.values()), ms, plain_ms, n_bytes, n_imad,
+                            limbs=False)
+        emit({"phase": "kernels", "kernel": "ec_madd_scan", "lanes": lanes, "steps": steps,
+              "max_abs_err": errs, "chain_max_abs_err": chain_err, "ms": ms,
+              "chain_ms": chain_ms, "plain_ms": plain_ms, "kept_steps": kept, **bounds})
         return ok
 
-    # the K2c and K2b formulas that no path launches (every MSM of the paths
-    # assumes distinct bases; no Edwards fixed-base; IPA-PC's key fold runs
-    # ed_smul, whose doublings are inside its one launch): held against
-    # their plain versions here, without a kernel-table entry
-    OFF_PATH = ("ec_g2_madd_packed", "ec_ed_madd", "ec_ed_double")
+    # the K2a, K2c and K2b formulas that no path launches (G1 MSMs scan in
+    # madd_scan; every MSM of the paths assumes distinct bases; no Edwards
+    # fixed-base; IPA-PC's key fold runs ed_smul, whose doublings are inside
+    # its one launch): held against their plain versions here, without a
+    # kernel-table entry
+    OFF_PATH = ("ec_madd_packed", "ec_madd_distinct_packed", "ec_g2_madd_packed", "ec_ed_madd",
+                "ec_ed_double")
     CURVE_KERNEL_N = 1 << 16  # the MSM scan's width: 16 windows x 4096 lanes
     IN_COORDS = {"madd": 5, "madd_distinct": 5, "madd_packed": 4, "madd_distinct_packed": 4,
                  "add": 6, "double": 3}
@@ -753,9 +920,12 @@ class Smoke:
 
     def check_ntt_kernels(self):
         """K4a, K4b and K4c against their plain versions at the Ligero path's
-        shape (256 rows of 2^15 points: 2^23 elements; K4c at the first
-        stage past the block), K4a on 2^21 pairs; both scalar fields, timed
-        on BN254's (one 8-word build serves both)."""
+        shape (256 rows of 2^15 points: 2^23 elements; K4c over the four
+        stages past the block, 11-14, in one launch, as the path runs it,
+        bit for bit), K4a on 2^21 pairs; both scalar fields, timed on BN254's
+        (one 8-word build serves both). K4c is also timed beside the chain
+        of one-stage launches of the same stages (``chain_ms``, equal limb
+        for limb) and at one stage (``one_stage_ms``)."""
         from poly_commit_tpu_torch.core import ff, ntt_lf
         from poly_commit_tpu_torch.core import field_params as FP
         from poly_commit_tpu_torch.core import ntt as NTT
@@ -764,6 +934,7 @@ class Smoke:
         total, log_n, pairs = self.NTT_KERNEL_SHAPE
         block = ntt_lf.FUSE_BLOCK
         n_fused = s_big = block.bit_length() - 1
+        big = range(s_big, log_n)  # K4c's stages at this shape, one launch
         errs = {"k4a": 0, "k4b": 0, "k4c": 0}
         for spec in (FP.FR_BLS12_381, FP.FR_BN254):
             lazy = lambda n: ff.plain("add", spec, self.rand_field(spec, n), self.rand_field(spec, n))  # noqa: E731
@@ -776,13 +947,24 @@ class Smoke:
                         lambda: ntt_lf.butterfly_plain(spec, u, w, tw)),
                 "k4b": (lambda: ntt_lf.fused_stages(spec, a, table, n_fused, block),
                         lambda: ntt_lf.fused_stages_plain(spec, a, table, n_fused, block)),
-                "k4c": (lambda: ntt_lf.stage(spec, a, tws[s_big], s_big),
-                        lambda: ntt_lf.stage_plain(spec, a, tws[s_big], s_big)),
+                "k4c": (lambda: ntt_lf.stages(spec, a, tws[s_big:], s_big),
+                        lambda: ntt_lf.stages_plain(spec, a, tws[s_big:], s_big)),
             }
+
+            def chain():  # K4c's stages one launch each, as before the multi-stage kernel
+                out = a
+                for s in big:
+                    out = ntt_lf.stage(spec, out, tws[s], s)
+                return out
+
             for kind, (kernel, plain) in runs.items():
                 got, want = kernel(), plain()
                 got, want = (got, want) if kind != "k4a" else (torch.cat(got, 1), torch.cat(want, 1))
                 err = self.canon_err(spec, got, want)
+                if kind == "k4c":  # bit for bit, on the raw limbs
+                    err = max(err, int((got.long() - want.long()).abs().max()))
+                    chain_err = int((chain().long() - got.long()).abs().max())
+                    err = max(err, chain_err)
                 errs[kind] = max(errs[kind], err)
                 line = {"phase": "kernels", "kernel": kind, "field": spec.name, "max_abs_err": err}
                 if spec is not FP.FR_BN254:
@@ -798,11 +980,13 @@ class Smoke:
                     n_bytes = 2 * total * L4 + table.shape[1] * L4
                     n_imad = n_fused * (total // 2) * IMAD_PER_PRODUCT
                     shape = {"total": total, "block": block, "stages": n_fused}
-                else:  # each element read and written once, the stage's twiddles read once
-                    name = "ntt_stage"
-                    n_bytes = 2 * total * L4 + (1 << s_big) * L4
-                    n_imad = (total // 2) * IMAD_PER_PRODUCT
-                    shape = {"total": total, "stage": s_big}
+                else:  # each element read and written once, the stages' twiddles read once
+                    name = "ntt_stages"
+                    n_bytes = 2 * total * L4 + sum(1 << s for s in big) * L4
+                    n_imad = len(big) * (total // 2) * IMAD_PER_PRODUCT
+                    shape = {"total": total, "stages": [big[0], big[-1]],
+                             "chain_ms": time_ms(chain, 20),
+                             "one_stage_ms": time_ms(lambda: ntt_lf.stage(spec, a, tws[s_big], s_big), 20)}
                 bounds = self.entry(name, kind, None, ms, plain_ms, n_bytes, n_imad)
                 emit({**line, "kernel": name, **shape, "ms": ms, "plain_ms": plain_ms, **bounds})
             del a, u, w, tw, runs
@@ -902,6 +1086,7 @@ class Smoke:
         rejected = not stage("check_tampered", lambda: PC.batch_check(
             vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
         launches, ff_by_field, ff_by_size = self.read_counts()
+        profile = self.profile(lambda: PC.commit(ck, [lp], rng))
 
         # the check stage apart, on this run's commitment and proof: its two
         # MSMs (2 points and 1, complete mixed add) and the pairing of two G1
@@ -924,17 +1109,52 @@ class Smoke:
         for c in reversed(ints):
             acc = (acc * z + c) % spec.modulus
         value_ok = values[("p", z)] == acc
-        # every K2a formula and K3 ran, every K1 build of the main path ran,
-        # and no K1 build ran that phase 2 did not hold against its plain version
-        needed = [f"ec_{w.__name__}" for w in ec_lf.WRAPPERS] + ["digit_sort"] + list(self.MAIN_PATH_FF)
+        # every K2a entry of the main path and K3 ran, every K1 build of the
+        # main path ran, and no K1 build ran that phase 2 did not hold against
+        # its plain version; the G1 MSMs scanned in madd_scan, not the loop
+        needed = list(self.MAIN_PATH_EC) + ["digit_sort"] + list(self.MAIN_PATH_FF)
         all_launched = self.all_launched(launches, ff_by_field, needed)
+        scanned = launches["ec_madd_distinct_packed"] <= self.MAX_PACKED_MADD_LAUNCHES
         emit({"phase": "main_path", "scheme": "MarlinKZG10/BLS12-381", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "check_split_ms": split, "check": bool(ok),
               "tampered_rejected": rejected, "value_matches_host": value_ok, "launches": launches,
               "ff_launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
-              "all_kernels_launched": all_launched,
+              "all_kernels_launched": all_launched, "msms_scanned_in_one_launch": scanned,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-        return bool(ok) and rejected and value_ok and all_launched
+        emit({"phase": "main_path_profile", "stage": "commit", **profile})
+        return bool(ok) and rejected and value_ok and all_launched and scanned
+
+    def profile(self, fn, top=5):
+        """fn() once under torch.profiler (CPU and CUDA activities): its host
+        wall ms, the device-busy ms (the union of the device activities'
+        intervals: kernels, copies, sets) and its share of the wall time, and
+        the ``top`` kernels by summed device time. The profiler's own host
+        overhead is in the wall time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+        busy_us, end = 0.0, float("-inf")
+        for a, b in spans:  # the union of the intervals
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        by_name = {}
+        for e in device:
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, calls + 1)
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+        return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+                "device_busy_share": busy_us / 1e3 / wall_ms, "device_activities": len(device),
+                "top_kernels": [{"name": n[:120], "device_ms": ms, "calls": c}
+                                for n, (ms, c) in ranked]}
 
     # -- phase 5 ----------------------------------------------------------
     def ntt_path(self):
@@ -1040,7 +1260,7 @@ class Smoke:
             vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         launches, by_field, ff_by_size = self.read_counts()
-        needed = ["ntt_fused_stages", "ntt_stage"] + list(self.LIGERO_FF[which])
+        needed = ["ntt_fused_stages", "ntt_stages"] + list(self.LIGERO_FF[which])
         all_launched = self.all_launched(launches, by_field, needed)
 
         # commit's parts, timed apart on the same matrix: the encode on the
@@ -1121,7 +1341,7 @@ class Smoke:
               open_split)
         device_value = F.to_ints(spec, P.mle_evaluate(spec, table, F.from_ints(spec, point, device=self.dev)))
         needed = [f"ec_{w}" for w in ("g2_madd", "g2_madd_distinct", "g2_madd_distinct_packed",
-                                      "g2_add", "g2_double", "madd_distinct_packed", "add")]
+                                      "g2_add", "g2_double", "madd_scan", "add")]
         needed += ["digit_sort", "ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]",
                    "ff_mont_mul[fr_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
@@ -1234,6 +1454,10 @@ def main() -> int:
                    "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
+        k4c = smoke.totals.get("ntt_stages", 0)
+        results["k4c_passes"] = 0 < k4c <= smoke.MAX_K4C_LAUNCHES
+        emit({"phase": "k4c_launches", "over": "phases 4-8", "launches": k4c,
+              "at_most": smoke.MAX_K4C_LAUNCHES})
     except Exception:  # a failing phase: report it and exit non-zero
         traceback.print_exc()
         return 1

@@ -19,6 +19,12 @@ What bounds it on the card: a madd reads 4 and writes 3 coordinates
 (~0.7 KB at L = 24) and issues ~11 x 600 IMADs, ~9 IMAD per byte, above the
 card's IMAD-to-bandwidth ratio: it is bound by integer multiplies, and the
 design spends nothing on memory beyond one read and one write per point.
+Each product is one call of the carry-chain product (csrc/ff.cuh), so a
+formula holds one copy of it. ``madd_scan`` is the MSM's within-lane scan
+(poly_commit_tpu/core/msm_tpu.py:506 runs the K2a madd once a step in a
+lax.scan) in one launch: a lane's sum stays in a thread's registers over
+every step, its points come from a point-major table, and each step's sum
+is stored once as that step's prefix.
 
 K2c (csrc/ec_g2.cu) replaces the ``g2_*`` entries: the same formulas
 (csrc/ec_jac.cuh is shared with K2a) over Fq2 = Fq[u]/(u^2 - nr), Karatsuba
@@ -312,6 +318,10 @@ def _lib(name: str):
                                  ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32),
                                  ctypes.c_void_p]
         lib.pc_ec_op.restype = ctypes.c_int
+        lib.pc_ec_scan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+        lib.pc_ec_scan.restype = ctypes.c_int
     elif name == "ec_g2":
         lib.pc_ec_g2_op.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_void_p, ctypes.c_longlong,
@@ -403,14 +413,85 @@ def double(spec, p):
     return _run(double, "double", spec, (p[0], p[1], p[2]))
 
 
-WRAPPERS = (madd, madd_distinct, madd_packed, madd_distinct_packed, add, double)
-for _w in WRAPPERS:
-    _w.launches = 0
-
-
 def select(mask, p, q):
     """where(mask, p, q) per point; mask (N,) bool."""
     return tuple(ff.select(mask, a, b) for a, b in zip(p, q))
+
+
+def scan_loop(madd_packed, acc, packed, idx, keep):
+    """The MSM's within-lane scan as a loop of launches, one step a
+    launch: acc <- keep[s] ? madd_packed(acc, packed[:, idx[s]]) : acc, and
+    prefix s <- acc. ``packed`` is (rows, N) limbs-first pairs of words
+    (``pack``), idx and keep (steps, lanes). Returns (acc, prefixes), the
+    prefixes (n_coords, rows, steps, lanes)."""
+    steps, lanes = idx.shape
+    prefixes = torch.empty((len(acc), acc[0].shape[0], steps, lanes), dtype=torch.int32,
+                           device=acc[0].device)
+    for s in range(steps):
+        g = packed.index_select(1, idx[s]).contiguous()
+        acc = select(keep[s], madd_packed(acc, g), acc)
+        for k, cc in enumerate(acc):
+            prefixes[k, :, s] = cc
+    return acc, prefixes
+
+
+def _scan_args(spec: FieldSpec, table, idx, keep):
+    L = spec.n_limbs
+    if table.dtype != torch.int32 or table.dim() != 2 or table.shape[1] != L:
+        raise ValueError(f"expected an (N, {L}) int32 point table, got {tuple(table.shape)} "
+                         f"{table.dtype}")
+    if idx.dtype != torch.int32 or keep.dtype != torch.bool or idx.dim() != 2 or idx.shape != keep.shape:
+        raise ValueError(f"expected (steps, lanes) int32 idx and bool keep, got {tuple(idx.shape)} "
+                         f"{idx.dtype} and {tuple(keep.shape)} {keep.dtype}")
+    if 0 in idx.shape:
+        raise ValueError(f"the scan takes at least one step and one lane, got {tuple(idx.shape)}")
+    if not (table.is_contiguous() and idx.is_contiguous() and keep.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    if not table.device == idx.device == keep.device:
+        raise ValueError("operands lie on different devices")
+
+
+def _scan_plain(spec: FieldSpec, table, idx, keep, distinct: bool):
+    which = "madd_distinct_packed" if distinct else "madd_packed"
+    acc = infinity(spec, idx.shape[1], table.device)
+    return scan_loop(lambda p, g: _plain(which, spec, (*p, g)), acc, table.T, idx, keep)
+
+
+def madd_scan_plain(spec, table, idx, keep, distinct: bool):
+    """The plain PyTorch version of ``madd_scan`` on any device: the loop
+    of ``scan_loop`` on the plain mixed add."""
+    _scan_args(spec, table, idx, keep)
+    return _scan_plain(spec, table, idx, keep, distinct)
+
+
+def madd_scan(spec, table, idx, keep, distinct: bool):
+    """The MSM's within-lane scan in one K2a launch (``pc_ec_scan``): from
+    infinity, lane i adds the affine point at row idx[s, i] of ``table``
+    where keep[s, i], step by step, and keeps every step's sum. ``table`` is
+    (N, L) int32, row j the point's x words then y words (``pack(x, y).T``),
+    idx int32 and keep bool (steps, lanes); idx must be rows of the table.
+    ``distinct`` takes madd_distinct (no point added equals +-the sum; every
+    SRS), else the complete madd. Returns (acc, prefixes): the final sums
+    and every step's, (3, L, steps, lanes), limb for limb ``scan_loop`` over
+    ``madd_distinct_packed`` / ``madd_packed``."""
+    _scan_args(spec, table, idx, keep)
+    if table.device.type == "cpu":
+        return _scan_plain(spec, table, idx, keep, distinct)
+    D.require_cuda(table)
+    steps, lanes = idx.shape
+    prefixes = torch.empty((3, spec.n_limbs, steps, lanes), dtype=torch.int32, device=table.device)
+    rc = _lib("ec_g1").pc_ec_scan(ff.n_words(spec), int(not distinct), table.data_ptr(),
+                                  idx.data_ptr(), keep.data_ptr(), prefixes.data_ptr(), lanes,
+                                  steps, ff.kernel_consts(spec), D.stream_of(table))
+    if rc != 0:
+        raise RuntimeError(f"ec madd_scan kernel launch failed: CUDA error {rc}")
+    madd_scan.launches += 1
+    return tuple(prefixes[k, :, steps - 1].contiguous() for k in range(3)), prefixes
+
+
+WRAPPERS = (madd, madd_distinct, madd_packed, madd_distinct_packed, add, double, madd_scan)
+for _w in WRAPPERS:
+    _w.launches = 0
 
 
 def infinity(spec: FieldSpec, n: int, device):

@@ -6,9 +6,10 @@ Counterpart of poly_commit_tpu/core/msm_tpu.py, following ``_msm_body``:
      the sentinel 2^c. Each window's points are grouped by digit with the
      counting sort of core/sort_gpu.py (K3), which also yields the bucket
      tails.
-  2. The sorted points are laid out as T lanes x S steps per window; one
-     loop of S launches of the packed mixed add accumulates every lane's
-     prefix, and each step's prefix is kept.
+  2. The sorted points are laid out as T lanes x S steps per window; the
+     packed mixed add accumulates every lane's prefix over its S steps, and
+     each step's prefix is kept: in G1 one ``madd_scan`` launch (K2a), in
+     G2 and JubJub a loop of S launches (``ec_lf.scan_loop``).
   3. A Blelloch tree over the T lanes (2 log2 T launches of ``add``) turns
      the lane totals into exclusive cross-lane prefixes.
   4. Each bucket's running sum G_b is the global prefix at its tail:
@@ -96,8 +97,9 @@ class JACOBIAN_OPS:
         return (EC.madd_distinct if distinct else EC.madd)(spec, p, x, y)
 
     @staticmethod
-    def madd_packed(spec, p, pq, distinct: bool):
-        return (EC.madd_distinct_packed if distinct else EC.madd_packed)(spec, p, pq)
+    def scan(spec, packed, idx, keep, distinct: bool):
+        """The within-lane scan in one launch, the points point-major."""
+        return EC.madd_scan(spec, packed.T.contiguous(), idx, keep, distinct)
 
     add = staticmethod(EC.add)
     double = staticmethod(EC.double)
@@ -153,8 +155,11 @@ class G2_OPS:
         return (EC.g2_madd_distinct if distinct else EC.g2_madd)(spec, p, x, y)
 
     @staticmethod
-    def madd_packed(spec, p, pq, distinct: bool):
-        return (EC.g2_madd_distinct_packed if distinct else EC.g2_madd_packed)(spec, p, pq)
+    def scan(spec, packed, idx, keep, distinct: bool):
+        """The within-lane scan, one mixed-add launch a step."""
+        madd = EC.g2_madd_distinct_packed if distinct else EC.g2_madd_packed
+        return EC.scan_loop(lambda p, g: madd(spec, p, g),
+                            EC.g2_infinity(spec, idx.shape[1], idx.device), packed, idx, keep)
 
     add = staticmethod(EC.g2_add)
     double = staticmethod(EC.g2_double)
@@ -205,8 +210,10 @@ class EDWARDS_OPS:
         return EC.ed_madd(spec, p, x, y)
 
     @staticmethod
-    def madd_packed(spec, p, pq, distinct: bool):
-        return EC.ed_madd_packed(spec, p, pq)
+    def scan(spec, packed, idx, keep, distinct: bool):
+        """The within-lane scan, one mixed-add launch a step."""
+        return EC.scan_loop(lambda p, g: EC.ed_madd_packed(spec, p, g),
+                            EC.ed_infinity(spec, idx.shape[1], idx.device), packed, idx, keep)
 
     add = staticmethod(EC.ed_add)
     double = staticmethod(EC.ed_double)
@@ -274,17 +281,10 @@ def _msm_body(spec: FieldSpec, ops, scalars, x, y, inf, assume_distinct: bool, c
     order, sd, incl = sort_gpu.digit_sort(digs, bsz)
 
     # lane t of window w covers sorted positions [t S, (t + 1) S)
-    idx_l = order.view(w_count, t_lanes, l_steps).permute(2, 0, 1).reshape(l_steps, m)
-    keep_l = (sd != bsz).view(w_count, t_lanes, l_steps).permute(2, 0, 1).reshape(l_steps, m)
+    idx_l = order.view(w_count, t_lanes, l_steps).permute(2, 0, 1).reshape(l_steps, m).contiguous()
+    keep_l = (sd != bsz).view(w_count, t_lanes, l_steps).permute(2, 0, 1).reshape(l_steps, m).contiguous()
     packed = EC.pack(x, y)  # x and y limb pairs as 32-bit words: one gather
-
-    acc = ops.infinity(spec, m, dev)
-    prefixes = torch.empty((nc, L, l_steps, m), dtype=torch.int32, device=dev)
-    for s in range(l_steps):
-        g = packed.index_select(1, idx_l[s])
-        acc = EC.select(keep_l[s], ops.madd_packed(spec, acc, g, assume_distinct), acc)
-        for k in range(nc):
-            prefixes[k, :, s] = acc[k]
+    acc, prefixes = ops.scan(spec, packed, idx_l, keep_l, assume_distinct)
 
     # exclusive prefix of the lane totals per window (Blelloch)
     levels = t_lanes.bit_length() - 1

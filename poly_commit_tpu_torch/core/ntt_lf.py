@@ -8,8 +8,8 @@ value below 2p. The dispatch is the JAX package's (``_ntt_lf_body``):
   - bit-reverse each length-n block (plain torch, as in the JAX package);
   - from 1024 elements in all: K4b (``fused_stages``) runs the first
     log2(B) stages of every B-element block at once (all log2 n stages when
-    n <= B), then K4c (``stage``) runs each remaining stage over the whole
-    array;
+    n <= B), then K4c (``stages``) runs the remaining stages over the whole
+    array, up to MAX_STAGES of them a launch;
   - below that, K4a (``butterfly``) runs stage by stage on the split halves;
   - ``intt`` scales by n^-1 with K1.
 
@@ -34,6 +34,7 @@ from .field_params import FieldSpec
 
 FUSE_BLOCK = 1 << 11  # elements per K4b thread block
 FUSED_MIN_TOTAL = 1024  # smaller transforms take K4a stage by stage
+MAX_STAGES = 6  # K4c stages a launch (csrc/ntt.cu's MAX_STAGES)
 _PLAIN_CHUNK = 1 << 20  # butterflies per plain-version step (bounds its int64 temporaries)
 
 
@@ -53,9 +54,9 @@ def _lib():
     lib = D.library("ntt")
     ptr, i64, consts = ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32)
     lib.pc_ntt_butterfly.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, consts, ptr]
-    lib.pc_ntt_stage.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int, consts, ptr]
+    lib.pc_ntt_stages.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int, ctypes.c_int, consts, ptr]
     lib.pc_ntt_fused.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int, ctypes.c_int, i64, consts, ptr]
-    for fn in (lib.pc_ntt_butterfly, lib.pc_ntt_stage, lib.pc_ntt_fused):
+    for fn in (lib.pc_ntt_butterfly, lib.pc_ntt_stages, lib.pc_ntt_fused):
         fn.restype = ctypes.c_int
     return lib
 
@@ -100,6 +101,15 @@ def stage_plain(spec: FieldSpec, a, tw, s: int):
     return _by_stage(butterfly_plain, spec, a, tw, s)
 
 
+def stages_plain(spec: FieldSpec, a, tws, s0: int):
+    """Stages s0 .. s0 + len(tws) - 1, tws[t] stage s0 + t's (L, 2^(s0+t))
+    twiddles: the chain of ``stage_plain`` calls."""
+    _stages_args(spec, a, tws, s0)
+    for t, tw in enumerate(tws):
+        a = stage_plain(spec, a, tw, s0 + t)
+    return a
+
+
 def fused_stages_plain(spec: FieldSpec, a, table, n_stages: int, block: int):
     """Stages 0 .. n_stages-1 of every ``block``-element block. Those stages
     never pair across a block, so they run over the whole array at once."""
@@ -131,21 +141,38 @@ def butterfly(spec: FieldSpec, u, w, tw):
     return lo, hi
 
 
-def stage(spec: FieldSpec, a, tw, s: int):
-    """K4c: stage s of (L, total), pairing i with i + 2^s, with the stage's
-    (L, 2^s) distinct twiddles."""
-    _check(spec, a, tw)
-    half = 1 << s
-    if a.shape[1] % (2 * half) or tw.shape[1] != half:
-        raise ValueError(f"stage {s}: total {a.shape[1]}, twiddles {tw.shape[1]}")
+def _stages_args(spec: FieldSpec, a, tws, s0: int) -> None:
+    _check(spec, a, *tws)
+    r = len(tws)
+    if not 1 <= r <= MAX_STAGES or s0 < 0 or a.shape[1] % (1 << (s0 + r)):
+        raise ValueError(f"stages {s0}..{s0 + r - 1}: total {a.shape[1]}, "
+                         f"1 to {MAX_STAGES} stages a launch")
+    for t, tw in enumerate(tws):
+        if tw.shape[1] != 1 << (s0 + t):
+            raise ValueError(f"stage {s0 + t}: twiddles {tw.shape[1]}")
+
+
+def stages(spec: FieldSpec, a, tws, s0: int):
+    """K4c: stages s0 .. s0 + r - 1 of (L, total) in one launch, r =
+    len(tws) <= MAX_STAGES; stage s0 + t pairs i with i + 2^(s0+t) and takes
+    tws[t], its (L, 2^(s0+t)) distinct twiddles."""
+    tws = tuple(tws)
+    _stages_args(spec, a, tws, s0)
     if a.device.type == "cpu":
-        return stage_plain(spec, a, tw, s)
+        return stages_plain(spec, a, tws, s0)
     D.require_cuda(a)
     out = torch.empty_like(a)
-    _raise_on(_lib().pc_ntt_stage(a.data_ptr(), tw.data_ptr(), out.data_ptr(), a.shape[1], s,
-                                  ff.kernel_consts(spec), D.stream_of(a)), "ntt stage")
-    stage.launches += 1
+    ptrs = (ctypes.c_void_p * len(tws))(*[t.data_ptr() for t in tws])
+    _raise_on(_lib().pc_ntt_stages(a.data_ptr(), ptrs, out.data_ptr(), a.shape[1], s0, len(tws),
+                                   ff.kernel_consts(spec), D.stream_of(a)), "ntt stages")
+    stages.launches += 1
     return out
+
+
+def stage(spec: FieldSpec, a, tw, s: int):
+    """K4c's one-stage case: stage s of (L, total), pairing i with i + 2^s,
+    with the stage's (L, 2^s) distinct twiddles."""
+    return stages(spec, a, (tw,), s)
 
 
 def _fused_args(a, table, n_stages: int, block: int) -> None:
@@ -180,10 +207,10 @@ def fused_stages(spec: FieldSpec, a, table, n_stages: int, block: int):
     return out
 
 
-for _w in (butterfly, stage, fused_stages):
+for _w in (butterfly, stages, fused_stages):
     _w.launches = 0
 del _w
-WRAPPERS = (butterfly, fused_stages, stage)
+WRAPPERS = (butterfly, fused_stages, stages)
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +247,8 @@ def transform(spec: FieldSpec, a, rows: int, inverse: bool):
         s0 = min(log_n, block.bit_length() - 1)
         if s0:
             a = fused_stages(spec, a, fused_table(tws, s0), s0, block)
-        for s in range(s0, log_n):
-            a = stage(spec, a, tws[s], s)
+        for s in range(s0, log_n, MAX_STAGES):
+            a = stages(spec, a, tws[s : min(s + MAX_STAGES, log_n)], s)
     else:
         for s in range(log_n):
             a = _by_stage(butterfly, spec, a, tws[s], s)

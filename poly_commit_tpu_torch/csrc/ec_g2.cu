@@ -27,58 +27,11 @@
 // kernel's work; this design does 4), ~33 base products (~20,000 IMADs at
 // L = 24) per point: bound by integer multiplies, as K2a is.
 //
-// The base product is ff.cuh's CIOS with every loop unrolled, as one
-// function call (__noinline__): inlined at each of a formula's ~30 sites,
-// the unrolled formulas outgrow the instruction cache, and the call keeps
-// one copy of the product a build.
+// The base product is ec_jac.cuh's base_mul: ff.cuh's CIOS with every loop
+// unrolled, as one function call (__noinline__). Inlined at each of a
+// formula's ~30 sites, the unrolled formulas outgrow the instruction cache;
+// the call keeps one copy of the product a build.
 #include "ec_jac.cuh"
-
-// The constants a product reads (p, 2p, -p^-1, the post-reduce flag), by
-// value into a call and back into a FieldConsts inside it.
-template <int NW>
-struct MulConsts {
-  Fe<NW> p, twop;
-  uint32_t inv, post;
-};
-
-template <int NW>
-__device__ __forceinline__ MulConsts<NW> mul_consts(const FieldConsts& c) {
-  MulConsts<NW> m;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    m.p.w[k] = c.p[k];
-    m.twop.w[k] = c.twop[k];
-  }
-  m.inv = c.inv;
-  m.post = c.post;
-  return m;
-}
-
-template <int NW>
-__device__ __forceinline__ FieldConsts field_consts(const MulConsts<NW>& m) {
-  FieldConsts c;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    c.p[k] = m.p.w[k];
-    c.twop[k] = m.twop.w[k];
-  }
-  c.inv = m.inv;
-  c.post = m.post;
-  return c;
-}
-
-template <int NW>
-__device__ __noinline__ Fe<NW> mul_call(Fe<NW> a, Fe<NW> b, MulConsts<NW> m) {
-  Fe<NW> r;
-  fe_mul<NW>(r, a, b, field_consts<NW>(m));
-  return r;
-}
-
-template <int NW>
-__device__ __forceinline__ void base_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b,
-                                         const FieldConsts& c) {
-  r = mul_call<NW>(a, b, mul_consts<NW>(c));
-}
 
 template <int NW>
 __device__ __forceinline__ void fe_select(Fe<NW>& r, bool first, const Fe<NW>& a, const Fe<NW>& b) {

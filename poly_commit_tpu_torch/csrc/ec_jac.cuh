@@ -10,7 +10,8 @@
 // A field policy F gives the element type F::E, its arithmetic (mul, sqr,
 // add, sub, is_zero, set_one, set_zero: the same operation sequence as the
 // port's plain versions, so results agree bit for bit), F::WORDS packed
-// 32-bit rows per coordinate, F::LANES threads per point, and load/store.
+// 32-bit rows per coordinate, F::LANES threads per point, and load/store
+// (and, for the scan's point-major table, load_point: Fp only).
 // With more than one lane per point, F::is_zero gives every lane of the
 // point the same answer, so the lanes of a point take the same branch of
 // the complete formulas (lanes of different points may not).
@@ -27,16 +28,68 @@ struct EcArgs {
 
 enum Which { MADD = 0, MADD_DISTINCT = 1, MADD_PACKED = 2, MADD_DISTINCT_PACKED = 3, ADD = 4, DOUBLE = 5 };
 
-// The prime field itself: Fe<NW> with ff.cuh's arithmetic.
+// The constants a product reads (p, 2p, -p^-1, the post-reduce flag), by
+// value into a call and back into a FieldConsts inside it.
+template <int NW>
+struct MulConsts {
+  Fe<NW> p, twop;
+  uint32_t inv, post;
+};
+
+template <int NW>
+__device__ __forceinline__ MulConsts<NW> mul_consts(const FieldConsts& c) {
+  MulConsts<NW> m;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    m.p.w[k] = c.p[k];
+    m.twop.w[k] = c.twop[k];
+  }
+  m.inv = c.inv;
+  m.post = c.post;
+  return m;
+}
+
+template <int NW>
+__device__ __forceinline__ FieldConsts field_consts(const MulConsts<NW>& m) {
+  FieldConsts c;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    c.p[k] = m.p.w[k];
+    c.twop[k] = m.twop.w[k];
+  }
+  c.inv = m.inv;
+  c.post = m.post;
+  return c;
+}
+
+// ff.cuh's product as one function call (__noinline__): the unrolled
+// product is ~600 instructions at NW = 12, and inlined at each of a
+// formula's 11-16 sites it outgrows the instruction cache; the call keeps
+// one copy of it a build (K2a and K2c).
+template <int NW>
+__device__ __noinline__ Fe<NW> mul_call(Fe<NW> a, Fe<NW> b, MulConsts<NW> m) {
+  Fe<NW> r;
+  fe_mul<NW>(r, a, b, field_consts<NW>(m));
+  return r;
+}
+
+template <int NW>
+__device__ __forceinline__ void base_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b,
+                                         const FieldConsts& c) {
+  r = mul_call<NW>(a, b, mul_consts<NW>(c));
+}
+
+// The prime field itself: Fe<NW> with ff.cuh's arithmetic, the product
+// through base_mul.
 template <int NW>
 struct Fp {
   using E = Fe<NW>;
   static constexpr int WORDS = NW;
   static constexpr int LANES = 1;
   static __device__ __forceinline__ void mul(E& r, const E& a, const E& b, const FieldConsts& c) {
-    fe_mul<NW>(r, a, b, c);
+    base_mul<NW>(r, a, b, c);
   }
-  static __device__ __forceinline__ void sqr(E& r, const E& a, const FieldConsts& c) { fe_sqr<NW>(r, a, c); }
+  static __device__ __forceinline__ void sqr(E& r, const E& a, const FieldConsts& c) { base_mul<NW>(r, a, a, c); }
   static __device__ __forceinline__ void add(E& r, const E& a, const E& b, const FieldConsts& c) {
     fe_add<NW>(r, a, b, c);
   }
@@ -51,6 +104,17 @@ struct Fp {
   }
   static __device__ __forceinline__ void load_packed(E& r, const int32_t* base, int64_t n, int64_t i, int row0) {
     fe_load_packed<NW>(r, base, n, i, row0);
+  }
+  // x and y of row j of a point-major (n, 2 NW) word table: 16-byte loads,
+  // 2 NW words of one point in 2 NW / 8 32-byte sectors
+  static __device__ __forceinline__ void load_point(E& x, E& y, const int32_t* table, int64_t j) {
+    const uint4* row = reinterpret_cast<const uint4*>(table + j * 2 * NW);
+#pragma unroll
+    for (int q = 0; q < NW / 4; ++q) {
+      const uint4 u = __ldg(row + q), v = __ldg(row + NW / 4 + q);
+      x.w[4 * q] = u.x, x.w[4 * q + 1] = u.y, x.w[4 * q + 2] = u.z, x.w[4 * q + 3] = u.w;
+      y.w[4 * q] = v.x, y.w[4 * q + 1] = v.y, y.w[4 * q + 2] = v.z, y.w[4 * q + 3] = v.w;
+    }
   }
   static __device__ __forceinline__ void store(int32_t* base, int64_t n, int64_t i, const E& a) {
     fe_store<NW>(base, n, i, a);
@@ -257,6 +321,55 @@ int ec_launch(int which, const EcArgs& a, int64_t n, const FieldConsts& c, cudaS
     default: return -1;
   }
   return 0;
+}
+
+// The MSM's within-lane scan, one thread a lane (F::LANES == 1): from
+// infinity, step s adds the affine point at row idx[s][i] of the
+// point-major table where keep[s][i] (the mixed add, complete or distinct),
+// and writes the running sum as prefix s. The sum stays in registers over
+// every step; a step whose keep is false only copies. Prefixes are
+// (3, rows, steps, lanes) limbs, so the stores of one step coalesce across
+// lanes, as do the reads of idx and keep.
+struct ScanArgs {
+  const int32_t* table;  // (points, 2 F::WORDS) packed words, x's then y's
+  const int32_t* idx;    // (steps, lanes) rows of the table
+  const uint8_t* keep;   // (steps, lanes)
+  int32_t* prefixes;     // (3, 2 F::WORDS, steps, lanes) 16-bit limbs
+};
+
+template <class F, bool COMPLETE>
+__global__ void __launch_bounds__(EC_BLOCK) k_scan(ScanArgs a, int64_t lanes, int steps, FieldConsts c) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < lanes;
+  if (!live) i = lanes - 1;
+  const int64_t row = (int64_t)steps * lanes;  // one limb row of one coordinate
+  const int64_t coord = 2 * F::WORDS * row;
+  Pt<F> acc;
+  pt_infinity<F>(acc, c);
+  for (int s = 0; s < steps; ++s) {
+    const int64_t at = (int64_t)s * lanes + i;
+    if (a.keep[at]) {
+      typename F::E x2, y2;
+      F::load_point(x2, y2, a.table, a.idx[at]);
+      Pt<F> o;
+      pt_madd<F, COMPLETE>(o, acc, x2, y2, c);
+      acc = o;
+    }
+    if (live) {
+      int32_t* out = a.prefixes + (int64_t)s * lanes;
+      F::store(out, row, i, acc.x);
+      F::store(out + coord, row, i, acc.y);
+      F::store(out + 2 * coord, row, i, acc.z);
+    }
+  }
+}
+
+template <class F>
+void scan_launch(bool complete, const ScanArgs& a, int64_t lanes, int steps, const FieldConsts& c,
+                 cudaStream_t s) {
+  dim3 grid((unsigned)((lanes + EC_BLOCK - 1) / EC_BLOCK));
+  if (complete) k_scan<F, true><<<grid, EC_BLOCK, 0, s>>>(a, lanes, steps, c);
+  else k_scan<F, false><<<grid, EC_BLOCK, 0, s>>>(a, lanes, steps, c);
 }
 
 // The host side of every pc_*_op entry: the pointer arrays and the constants.

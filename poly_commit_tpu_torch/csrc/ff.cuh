@@ -1,4 +1,5 @@
-// Field arithmetic on registers for the port's kernels (K1 and K2a).
+// Field arithmetic on registers for the port's kernels (K1, K2a, K2b, K2c
+// and K4): one product, one add and one sub, each a PTX carry chain.
 //
 // An element is NW 32-bit words (NW = 12 for the 381/377-bit Fq, 8 for the
 // 254/255-bit fields), little-endian, in Montgomery form with
@@ -55,30 +56,34 @@ __device__ __forceinline__ void fe_store(int32_t* base, int64_t n, int64_t i, co
   }
 }
 
+// Carry chains in PTX: add.cc / addc / sub.cc / subc / mad.lo.cc / madc.hi.cc
+// keep the carry in the condition code between instructions, where 64-bit
+// C++ forms every word sum in a register pair and adds its top word back.
+// Each chain is a run of asm volatile statements with nothing of its own in
+// between, so the compiler keeps their order and the carry they pass on.
+
 // r = a - b over NW words; returns the borrow (0/1).
 template <int NW>
 __device__ __forceinline__ uint32_t words_sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-  uint32_t borrow = 0;
+  uint32_t borrow;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r[0]) : "r"(a[0]), "r"(b[0]));
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    uint64_t d = (uint64_t)a[k] - (uint64_t)b[k] - borrow;
-    r[k] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 32) & 1u;
-  }
-  return borrow;
+  for (int k = 1; k < NW; ++k)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r[k]) : "r"(a[k]), "r"(b[k]));
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(borrow));
+  return borrow & 1u;
 }
 
 // r = a + b over NW words; returns the carry (0/1).
 template <int NW>
 __device__ __forceinline__ uint32_t words_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-  uint64_t carry = 0;
+  uint32_t carry;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r[0]) : "r"(a[0]), "r"(b[0]));
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    uint64_t s = (uint64_t)a[k] + (uint64_t)b[k] + carry;
-    r[k] = (uint32_t)s;
-    carry = s >> 32;
-  }
-  return (uint32_t)carry;
+  for (int k = 1; k < NW; ++k)
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r[k]) : "r"(a[k]), "r"(b[k]));
+  asm volatile("addc.u32 %0, 0, 0;" : "=r"(carry));
+  return carry;
 }
 
 // v + top*R (< 4p) minus 2p when it is >= 2p, so the result is < 2p.
@@ -92,7 +97,35 @@ __device__ __forceinline__ void reduce_2p(uint32_t* v, uint32_t top, const Field
   }
 }
 
-// CIOS Montgomery product a b R^-1 mod p for a, b < 2p; result < 2p.
+// t[0 .. NW+1] += a b for one word b, in two chains: the even words of a
+// (lo(a_2k b) into t_2k, hi into t_2k+1), then the odd words (lo(a_2k+1 b)
+// into t_2k+1, hi into t_2k+2), each ending in the top words' carries.
+// t's value stays below 2^(32 (NW + 2)) in fe_mul, so nothing is lost.
+template <int NW>
+__device__ __forceinline__ void mad_row(uint32_t* t, const uint32_t* a, uint32_t b) {
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(a[0]), "r"(b));
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(a[0]), "r"(b));
+#pragma unroll
+  for (int k = 2; k < NW; k += 2) {
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[k]) : "r"(a[k]), "r"(b));
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[k + 1]) : "r"(a[k]), "r"(b));
+  }
+  asm volatile("addc.cc.u32 %0, %0, 0;" : "+r"(t[NW]));
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[NW + 1]));
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(a[1]), "r"(b));
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[2]) : "r"(a[1]), "r"(b));
+#pragma unroll
+  for (int k = 3; k < NW; k += 2) {
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[k]) : "r"(a[k]), "r"(b));
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[k + 1]) : "r"(a[k]), "r"(b));
+  }
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[NW + 1]));
+}
+
+// CIOS Montgomery product a b R^-1 mod p for a, b < 2p; result < 2p. Row i
+// adds a b_i, then m p with m = t_0 (-p^-1) mod 2^32, and drops the zero low
+// word: word by word m gives the one M < R with a b + M p = 0 mod R, so the
+// result is the integer (a b + M p) / R of every CIOS, the plain version's.
 template <int NW>
 __device__ __forceinline__ void fe_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>& b,
                                        const FieldConsts& c) {
@@ -101,28 +134,11 @@ __device__ __forceinline__ void fe_mul(Fe<NW>& r, const Fe<NW>& a, const Fe<NW>&
   for (int k = 0; k < NW + 2; ++k) t[k] = 0;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    uint64_t carry = 0;
+    mad_row<NW>(t, a.w, b.w[i]);
+    mad_row<NW>(t, c.p, t[0] * c.inv);
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      uint64_t s = (uint64_t)t[j] + (uint64_t)a.w[j] * b.w[i] + carry;
-      t[j] = (uint32_t)s;
-      carry = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[NW] + carry;
-    t[NW] = (uint32_t)s;
-    t[NW + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * c.inv;
-    s = (uint64_t)t[0] + (uint64_t)m * c.p[0];
-    carry = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NW; ++j) {
-      s = (uint64_t)t[j] + (uint64_t)m * c.p[j] + carry;
-      t[j - 1] = (uint32_t)s;
-      carry = s >> 32;
-    }
-    s = (uint64_t)t[NW] + carry;
-    t[NW - 1] = (uint32_t)s;
-    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
+    for (int k = 0; k <= NW; ++k) t[k] = t[k + 1];
+    t[NW + 1] = 0;
   }
   // t < (4p^2 + R p) / R: below 2p when R >= 4p, below 3p otherwise
   if (c.post) reduce_2p<NW>(t, t[NW], c);

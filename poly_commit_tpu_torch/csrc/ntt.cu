@@ -4,7 +4,8 @@
 //   K4a pc_ntt_butterfly  <- _butterfly_fn    (one stage on split halves)
 //   K4b pc_ntt_fused      <- _fused_stages_fn (the first log2(B) stages of
 //                                             every B-element block, fused)
-//   K4c pc_ntt_stage      <- _big_stage_fn    (one stage with half >= B)
+//   K4c pc_ntt_stages     <- _big_stage_fn    (stages with half >= B, up to
+//                                             MAX_STAGES of them a launch)
 // The input is bit-reversed per transform (plain torch, core/ntt_lf.py), so
 // stage s pairs i with i + 2^s inside runs of 2^(s+1) and the pair
 // (i, i + half) takes twiddle tw_s[i mod half], the stage's distinct prefix.
@@ -13,11 +14,12 @@
 // 8-word fields (BN254 Fr, BLS12-381/377 Fr) take an NTT; the post-reduce
 // of the tighter fields is chosen at run time from the constants.
 //
-// What bounds them on this card: a K4a or K4c butterfly moves 5 (K4a) or 4
-// elements plus a twiddle (K4c) of 64 bytes (int32 per 16-bit limb) and does
-// 4*8^2 + 8 = 264 IMADs, ~1 IMAD per byte, below the card's IMAD/bandwidth
-// ratio (~5): bound by bytes. K4b reads and writes each element once for
-// log2(B) stages, so it is bound by IMADs.
+// What bounds them on this card: a K4a butterfly moves 5 elements of 64
+// bytes (int32 per 16-bit limb) and does 4*8^2 + 8 = 264 IMADs, ~1 IMAD per
+// byte, below the card's IMAD/bandwidth ratio (~5): bound by bytes. K4b
+// reads and writes each element once for log2(B) stages and K4c once for
+// its r stages, so both are bound by IMADs (K4c from r = 3 at 2 bytes a
+// limb).
 //
 // K4b design. A thread block owns B = 2^log_block contiguous elements and
 // keeps them in shared memory as packed 32-bit words, word-major
@@ -31,6 +33,19 @@
 // others; 2^12 would hold one block per SM and save one K4c pass of a
 // 2^15-point transform. Small strides (half < 32) still give 2-way bank
 // conflicts; left for a later performance change.
+//
+// K4c design. One stage a launch reads and writes every element once (0.83
+// of the int32 layout's byte bound at 2^23 elements), so the lever is the
+// count of passes: stages s0 .. s0+r-1 (r <= MAX_STAGES) run in one launch.
+// Index i = hi 2^(s0+r) + j 2^s0 + lo (lo < 2^s0, j < 2^r): those stages
+// pair j with j + 2^t and never touch hi or lo. A block owns C = min(32,
+// 2^s0) adjacent lo (so each limb row is read in 128-byte runs) times the
+// 2^r values of j, unpacked to words in shared memory, word-major as K4b's
+// (word q of (j, lo) at sm[q C 2^r + j C + lo]); it runs the r stages with
+// __syncthreads() between them and writes back. Stage s0+t takes twiddle
+// tw_{s0+t}[(j mod 2^t) 2^s0 + lo], contiguous across lo. At r = 6 a block
+// holds 32 x 64 elements (64 KiB), so three blocks share an SM; a 2^22
+// transform takes its 11 stages past the block in 2 launches instead of 11.
 #include <cstring>
 
 #include "ff.cuh"
@@ -67,25 +82,71 @@ __global__ void __launch_bounds__(THREADS) k_butterfly(const int32_t* __restrict
   fe_store<NW>(hi, n, i, y);
 }
 
-// K4c: one stage of half = 2^log_half over (2 NW, total); thread k takes the
-// pair (i, i + half), i = (k / half) 2 half + k mod half, and twiddle
-// tw[k mod half] of the (2 NW, half) stage table.
-__global__ void __launch_bounds__(THREADS) k_stage(const int32_t* __restrict__ a,
-                                                   const int32_t* __restrict__ tw,
-                                                   int32_t* __restrict__ out, int64_t total,
-                                                   int log_half, FieldConsts c) {
-  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= total / 2) return;
-  const int64_t half = (int64_t)1 << log_half;
-  const int64_t j = k & (half - 1);
-  const int64_t i = ((k >> log_half) << (log_half + 1)) | j;
-  Fe<NW> x, y, t;
-  fe_load<NW>(x, a, total, i);
-  fe_load<NW>(y, a, total, i + half);
-  fe_load<NW>(t, tw, half, j);
-  butterfly(x, y, t, c);
-  fe_store<NW>(out, total, i, x);
-  fe_store<NW>(out, total, i + half, y);
+constexpr int MAX_STAGES = 6;  // K4c stages a launch
+constexpr int LOG_C = 5;       // K4c lo values a block (at most)
+
+// The twiddle tables of a K4c launch: stage s0+t's (2 NW, 2^(s0+t)) limbs.
+struct StageTw {
+  const int32_t* tw[MAX_STAGES];
+};
+
+// K4c: stages s0 .. s0+n_stages-1 of (2 NW, total), C = 2^log_c lo values
+// by 2^n_stages values of j a block (see the design note above).
+__global__ void __launch_bounds__(THREADS) k_stages(const int32_t* __restrict__ a, StageTw tws,
+                                                    int32_t* __restrict__ out, int64_t total,
+                                                    int s0, int n_stages, int log_c,
+                                                    FieldConsts c) {
+  extern __shared__ uint32_t sm[];
+  const int C = 1 << log_c;
+  const int E = C << n_stages;  // elements of the block
+  const int64_t groups = (int64_t)1 << (s0 - log_c);  // lo groups per hi
+  const int64_t hi = blockIdx.x / groups;
+  const int64_t lo0 = (blockIdx.x % groups) << log_c;
+  const int64_t base = (hi << (s0 + n_stages)) + lo0;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int64_t at = base + ((int64_t)(e >> log_c) << s0) + (e & (C - 1));
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint32_t lo = (uint32_t)a[(int64_t)(2 * k) * total + at];
+      uint32_t hi16 = (uint32_t)a[(int64_t)(2 * k + 1) * total + at];
+      sm[k * E + e] = (lo & 0xFFFFu) | (hi16 << 16);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < MAX_STAGES; ++t) {  // unrolled: tws.tw[t] by a constant index
+    if (t >= n_stages) continue;
+    const int64_t tw_n = (int64_t)1 << (s0 + t);
+    for (int k = threadIdx.x; k < E / 2; k += blockDim.x) {
+      const int lo = k & (C - 1);
+      const int jj = k >> log_c;
+      const int j = ((jj >> t) << (t + 1)) | (jj & ((1 << t) - 1));
+      const int x_at = j * C + lo, y_at = x_at + (C << t);
+      Fe<NW> x, y, w;
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        x.w[q] = sm[q * E + x_at];
+        y.w[q] = sm[q * E + y_at];
+      }
+      fe_load<NW>(w, tws.tw[t], tw_n, ((int64_t)(j & ((1 << t) - 1)) << s0) + lo0 + lo);
+      butterfly(x, y, w, c);
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        sm[q * E + x_at] = x.w[q];
+        sm[q * E + y_at] = y.w[q];
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int64_t at = base + ((int64_t)(e >> log_c) << s0) + (e & (C - 1));
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint32_t v = sm[k * E + e];
+      out[(int64_t)(2 * k) * total + at] = (int32_t)(v & 0xFFFFu);
+      out[(int64_t)(2 * k + 1) * total + at] = (int32_t)(v >> 16);
+    }
+  }
 }
 
 // K4b: stages 0 .. n_stages-1 of the block of 2^log_block elements that
@@ -160,11 +221,22 @@ extern "C" int pc_ntt_butterfly(const void* u, const void* w, const void* tw, vo
   return (int)cudaGetLastError();
 }
 
-extern "C" int pc_ntt_stage(const void* a, const void* tw, void* out, long long total,
-                            int log_half, const uint32_t* consts, void* stream) {
-  if (log_half < 0 || log_half > 40 || total <= 0 || total % (2LL << log_half)) return -1;
-  k_stage<<<blocks_for(total / 2), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)tw, (int32_t*)out, total, log_half, load_consts(consts));
+// tw: host array of n_stages device pointers, stage s0+t's (16, 2^(s0+t)).
+extern "C" int pc_ntt_stages(const void* a, void* const* tw, void* out, long long total, int s0,
+                             int n_stages, const uint32_t* consts, void* stream) {
+  if (s0 < 0 || s0 > 40 || n_stages < 1 || n_stages > MAX_STAGES || total <= 0 ||
+      total % (1LL << (s0 + n_stages)))
+    return -1;
+  StageTw tws{};
+  for (int t = 0; t < n_stages; ++t) tws.tw[t] = (const int32_t*)tw[t];
+  const int log_c = s0 < LOG_C ? s0 : LOG_C;
+  const int E = 1 << (log_c + n_stages);
+  const int smem = E * NW * (int)sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(k_stages, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = E / 2 < THREADS ? (E / 2 < 32 ? 32 : E / 2) : THREADS;
+  k_stages<<<(unsigned)(total / E), threads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)a, tws, (int32_t*)out, total, s0, n_stages, log_c, load_consts(consts));
   return (int)cudaGetLastError();
 }
 

@@ -71,7 +71,9 @@ def toolchain() -> dict:
             "triton": triton_version, "nvcc": nvcc}
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of source ``name`` is (or will be) built: named by a
+    hash of the flags and every source, so an edit rebuilds it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
@@ -91,7 +93,7 @@ def build(names=SOURCES) -> float:
     nvcc = None
     procs = []
     for name in names:
-        out = _lib_path(name)
+        out = library_path(name)
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
@@ -140,6 +142,19 @@ def _demangle(names: list) -> list:
     return out if len(out) == len(names) else names
 
 
+def kernel_names(names: list) -> list:
+    """Mangled kernel names made readable: demangled where the toolkit can,
+    without the parameter list, namespaces and the casts on template
+    arguments."""
+    out = []
+    for name in _demangle(names) if names else []:
+        for cast, plain in (("(int)", ""), ("(bool)1", "true"), ("(bool)0", "false"),
+                            ("(anonymous namespace)::", ""), ("<unnamed>::", "")):
+            name = name.replace(cast, plain)
+        out.append(name.split("(")[0].removeprefix("void "))
+    return out
+
+
 def ptxas_report(log: str) -> list:
     """Per kernel entry in an nvcc -Xptxas -v log, and per device function
     compiled as a call (``"call": True``): its name (demangled, without the
@@ -167,10 +182,8 @@ def ptxas_report(log: str) -> list:
         m = _REGS.search(line)
         if m and entry is not None:
             entry["registers"] = int(m.group(1))
-    names = _demangle([r["entry"] for r in records]) if records else []
-    for r, name in zip(records, names):
-        name = name.replace("(int)", "").replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
-        r["entry"] = name.split("(")[0].removeprefix("void ")
+    for r, name in zip(records, kernel_names([r["entry"] for r in records])):
+        r["entry"] = name
     return records
 
 
@@ -185,7 +198,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
 

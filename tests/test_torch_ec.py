@@ -129,3 +129,77 @@ def test_pack_unpack_roundtrip():
     ux, uy = ec.unpack(ec.pack(tx, ty))
     assert torch.equal(ux, tx.long()) and torch.equal(uy, ty.long())
 
+
+
+SCAN_LANES, SCAN_STEPS = 8, 5
+
+
+def _scan_case(distinct):
+    """A point-major table of BLS12-381 G1 points (row 9 the negation of
+    row 0), idx and keep for 8 lanes x 5 steps, and the host sums of every
+    prefix. Lane 0 skips its first two steps (its prefixes start at
+    infinity), lane 7 skips every step; with the complete madd, lane 1 adds
+    row 0 twice (a doubling) and lane 2 adds row 0 then row 9 (back to
+    infinity, then onwards)."""
+    from poly_commit_tpu_torch.core import curve, hostec
+
+    group = curve.BLS12_381_G1
+    spec, hg = group.spec, hostec.host_group(curve.BLS12_381_G1)
+    rng = np.random.default_rng(21)
+    pts = [hg.mul_fast((group.gen_x, group.gen_y), int(rng.integers(1, 1 << 40))) for _ in range(9)]
+    pts.append(hg.neg(pts[0]))
+    # distinct rows within a lane, so the distinct madd's precondition holds
+    idx = np.stack([rng.permutation(9)[:SCAN_STEPS] for _ in range(SCAN_LANES)], 1)
+    keep = rng.random((SCAN_STEPS, SCAN_LANES)) < 0.8
+    keep[:2, 0] = False
+    keep[:, 7] = False
+    if not distinct:
+        idx[:2, 1], keep[:2, 1] = 0, True
+        idx[:2, 2], keep[:2, 2] = (0, 9), True
+    sums, acc = [], [None] * SCAN_LANES
+    for s in range(SCAN_STEPS):
+        acc = [hg.add(a, pts[idx[s, i]]) if keep[s, i] else a for i, a in enumerate(acc)]
+        sums.append(acc)
+    x = ff.from_ints(spec, [p[0] for p in pts], device="cpu")
+    y = ff.from_ints(spec, [p[1] for p in pts], device="cpu")
+    table = ec.pack(x, y).T.contiguous()
+    return spec, table, torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(keep), sums
+
+
+@pytest.mark.parametrize("distinct", [True, False], ids=["distinct", "complete"])
+def test_madd_scan_plain_matches_host_sums(distinct):
+    """madd_scan on the CPU (its plain version): every step's prefix equals
+    the host sum of the lane's kept points, in affine form, and the final
+    sums are the last prefix."""
+    spec, table, idx, keep, sums = _scan_case(distinct)
+    acc, prefixes = ec.madd_scan(spec, table, idx, keep, distinct)
+    assert prefixes.shape == (3, spec.n_limbs, SCAN_STEPS, SCAN_LANES)
+    for s in range(SCAN_STEPS):
+        got = _affine(spec, [prefixes[k, :, s].numpy() for k in range(3)])
+        assert got == sums[s]
+    assert all(torch.equal(a, prefixes[k, :, -1]) for k, a in enumerate(acc))
+    again = ec.madd_scan_plain(spec, table, idx, keep, distinct)
+    assert torch.equal(again[1], prefixes)
+    assert ec.madd_scan.launches == 0  # the CPU launches nothing
+
+
+def _bad_scan_args(spec, table, idx, keep):
+    return {
+        "narrow_table": (table[:, :-1].contiguous(), idx, keep),
+        "int64_idx": (table, idx.long(), keep),
+        "uint8_keep": (table, idx, keep.to(torch.uint8)),
+        "keep_shape": (table, idx, keep[:-1].contiguous()),
+        "no_steps": (table, idx[:0], keep[:0]),
+        "strided_idx": (table, idx.T, keep.T),
+    }
+
+
+@pytest.mark.parametrize("case", ["narrow_table", "int64_idx", "uint8_keep", "keep_shape",
+                                  "no_steps", "strided_idx"])
+def test_madd_scan_refuses_what_the_kernel_does_not_take(case):
+    spec, table, idx, keep, _ = _scan_case(True)
+    args = _bad_scan_args(spec, table, idx, keep)[case]
+    with pytest.raises(ValueError):
+        ec.madd_scan(spec, *args, True)
+    with pytest.raises(ValueError):
+        ec.madd_scan_plain(spec, *args, True)

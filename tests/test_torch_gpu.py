@@ -412,10 +412,67 @@ def test_ntt_round_trip_on_card(cuda, spec, log_n, rows):
     ev = ntt_lf.ntt(spec, a, rows=rows)
     back = ntt_lf.intt(spec, ev, rows=rows)
     torch.cuda.synchronize()
-    ran = [w.launches - b for w, b in zip(ntt_lf.WRAPPERS, before)]  # butterfly, fused, stage
+    ran = [w.launches - b for w, b in zip(ntt_lf.WRAPPERS, before)]  # butterfly, fused, stages
     assert (ran[0] > 0) == (rows << log_n < ntt_lf.FUSED_MIN_TOTAL)
     assert (ran[2] > 0) == (log_n > 11)
     assert torch.equal(ff.canonicalize(spec, back), a)
     portable = NTT.ntt(spec, ff.to_field_last(a, (rows, 1 << log_n)))
     assert torch.equal(ff.canonicalize(spec, ev), ff.from_field_last(portable))
 
+
+
+def _scan_inputs(spec, n_pts, steps, lanes, seed):
+    """A point-major table of random lazy coordinates (the last row the
+    negation of row 0), idx and keep (steps, lanes) on the CPU: lane 0
+    skips every step; lane 1 adds row 1 twice from infinity (a doubling in
+    the complete madd) and lane 2 row 0 then its negation (back to
+    infinity), where lanes allow; keep about 80% elsewhere."""
+    x, y = _field(spec, n_pts, seed), _field(spec, n_pts, seed + 1)
+    x[:, -1] = x[:, 0]
+    y[:, -1:] = ff.plain("sub", spec, torch.zeros_like(y[:, :1]), y[:, :1].contiguous())
+    table = ec_lf.pack(x, y).T.contiguous()
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, n_pts - 1, (steps, lanes), generator=g, dtype=torch.int32)
+    keep = torch.rand((steps, lanes), generator=g) < 0.8
+    keep[:, 0] = False
+    if lanes > 2:
+        keep[:2, 1:3] = True
+        idx[:2, 1] = 1
+        idx[0, 2], idx[1, 2] = 0, n_pts - 1
+    return table, idx, keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FQ_BLS12_381, FP.FQ_BLS12_377, FP.FQ_BN254], ids=lambda s: s.name)
+@pytest.mark.parametrize("lanes", [1, 300])  # 128 lanes a block: 300 leaves a partial block
+@pytest.mark.parametrize("distinct", [True, False], ids=["distinct", "complete"])
+def test_madd_scan_kernel_matches_plain(cuda, spec, lanes, distinct):
+    """K2a's one-launch scan against its plain version bit for bit, every
+    prefix and the final sums; skipped steps, a doubling and a return to
+    infinity included (where the distinct madd's precondition fails it
+    computes the same values as its plain version)."""
+    table, idx, keep = _scan_inputs(spec, 40, 7, lanes, 5)
+    before = ec_lf.madd_scan.launches
+    acc, prefixes = ec_lf.madd_scan(spec, *_to((table, idx, keep), cuda), distinct)
+    torch.cuda.synchronize()
+    assert ec_lf.madd_scan.launches == before + 1
+    want_acc, want = ec_lf.madd_scan_plain(spec, table, idx, keep, distinct)
+    assert torch.equal(prefixes.cpu(), want)
+    for g, w in zip(acc, want_acc):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FR_BN254, FP.FR_BLS12_381], ids=lambda s: s.name)
+@pytest.mark.parametrize("s0,r,rows,log_n", [(11, 4, 2, 15), (12, 2, 4, 14), (5, 6, 1, 11),
+                                             (2, 3, 8, 5), (0, 1, 4, 6)],
+                         ids=["ligero", "two_stages", "six_stages", "narrow_lo", "stage_0"])
+def test_ntt_stages_kernel_matches_plain(cuda, spec, s0, r, rows, log_n):
+    """K4c's stages s0 .. s0 + r - 1 in one launch against its plain
+    version (the chain of one-stage plain calls), bit for bit; the block's
+    lo run is 2^s0 where that is under 32."""
+    a = _field(spec, rows << log_n, 12)
+    tws = NTT.stage_twiddles(spec, log_n, False, "cpu")[s0 : s0 + r]
+    got = ntt_lf.stages(spec, a.to(cuda), _to(tws, cuda), s0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ntt_lf.stages_plain(spec, a, tws, s0))

@@ -195,3 +195,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # rows must split the array
         ntt_lf.ntt(spec, a, rows=3)
     assert [w.launches for w in ntt_lf.WRAPPERS] == [0, 0, 0]  # the CPU launches nothing
+
+
+def _host_stages(spec, vals, tws, s0):
+    """Radix-2 stages s0 .. s0 + len(tws) - 1 on host ints: stage s pairs j
+    with j + 2^s in every 2^(s+1)-run, (u + w t, u - w t) mod p with t the
+    stage's twiddle at j mod 2^s."""
+    p, vals = spec.modulus, list(vals)
+    for k, tw in enumerate(tws):
+        half = 1 << (s0 + k)
+        for start in range(0, len(vals), 2 * half):
+            for j in range(half):
+                u, w = vals[start + j], vals[start + j + half] * tw[j]
+                vals[start + j], vals[start + j + half] = (u + w) % p, (u - w) % p
+    return vals
+
+
+@pytest.mark.parametrize("field", list(SPECS))
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_stages_plain_matches_host_stages(field, rows, r):
+    """K4c's r stages a launch (on the CPU, its plain version) against the
+    same stages on host ints, stages s0 .. s0 + r - 1 of rows of 2^6, on
+    inputs in [0, 2p); and ``stage``, its one-stage case, against the first
+    of them."""
+    spec, _ = SPECS[field]
+    log_n, s0 = 6, 6 - r
+    a = _port(_raw(spec, _ints(spec, rows << log_n, seed=7 + r, bound=2 * spec.modulus)))
+    tws = NTT.stage_twiddles(spec, log_n, False, "cpu")
+    vals = ff.to_ints(spec, a)
+    host_tws = [ff.to_ints(spec, tw) for tw in tws[s0:]]
+    want = _host_stages(spec, vals, host_tws, s0)
+    assert ff.to_ints(spec, ntt_lf.stages(spec, a, tws[s0:], s0)) == want
+    assert ff.to_ints(spec, ntt_lf.stages_plain(spec, a, tws[s0:], s0)) == want
+    assert ff.to_ints(spec, ntt_lf.stage(spec, a, tws[s0], s0)) == _host_stages(spec, vals, host_tws[:1], s0)
+
+
+@pytest.mark.parametrize("case", ["no_stages", "too_many_stages", "past_the_row", "wrong_twiddles",
+                                  "negative_s0"])
+def test_stages_refuse_bad_stage_ranges(case):
+    spec = FR_BN254
+    a = ff.zeros(spec, 1 << 8, "cpu")
+    tws = NTT.stage_twiddles(spec, 8, False, "cpu")
+    s0, stage_tws = {
+        "no_stages": (1, ()),
+        "too_many_stages": (0, tws[: ntt_lf.MAX_STAGES + 1]),
+        "past_the_row": (7, tws[7:] + tws[:1]),  # stages 7 and 8 of 2^8 elements
+        "wrong_twiddles": (3, (tws[3], tws[3])),
+        "negative_s0": (-1, tws[:1]),
+    }[case]
+    with pytest.raises(ValueError):
+        ntt_lf.stages(spec, a, stage_tws, s0)
+    with pytest.raises(ValueError):
+        ntt_lf.stages_plain(spec, a, stage_tws, s0)
