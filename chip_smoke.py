@@ -9,17 +9,22 @@ Phases, one JSON line each (times in ms):
      (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the same inputs on
      the card, exactly (K1 ff mul/add/sub on the BLS12-381 base and scalar
-     fields, the BN254 scalar field and the BLS12-377 base field; K1's
-     power, the Fermat chain of every batched inversion, on the BLS12-381
-     base and scalar fields at 1 and 2^12 columns, and one batch_inv's
-     launches; K2a the six G1 formulas and madd_scan, the MSM's
+     fields, the BN254 scalar field and the BLS12-377 base field at 2^20
+     columns, and at 2^10 and 1 (also from a CUDA graph, without the
+     wrapper's host work); K1's power, the Fermat chain of every batched
+     inversion, on the BLS12-381 base and scalar fields at 1 and 2^12
+     columns; K1's batched inversion at 2^20 columns of Fq-381 and 2^15
+     of Fr-381 (its launches: the tree's levels and one power) and its
+     field sum at 2^16 of Fr-JubJub, each beside the loop of K1 launches it
+     replaced; K2a the six G1 formulas and madd_scan, the MSM's
      within-lane scan in one launch, bit for bit at the 2^20 MSM's 256
      steps x 2^16 lanes (the complete madd's edge lanes at 16 steps) and
      timed beside the loop of launches it replaced; K3,
      the stable digit sort, index for index at the 2^20 MSM's (16, 2^20)
      keys and the c = 8 MSMs' (32, 2^15); K4a/K4b/K4c the NTT stages on the
-     BN254 and BLS12-381 scalar fields, K4c four stages in one launch
-     beside the chain of one-stage launches), with the kernel's, the plain
+     BN254 and BLS12-381 scalar fields, K4a's 2^9-point transform and K4c
+     four stages in one launch each beside the chain of one-stage
+     launches), with the kernel's, the plain
      version's and, where one PyTorch call computes the same function,
      that call's time;
   3. a 2^12-point MSM against the host big-int oracle;
@@ -28,12 +33,13 @@ Phases, one JSON line each (times in ms):
      against host Horner evaluation, a tampered value rejected, and the
      launch count of every kernel over the run (the G1 MSMs in one
      madd_scan each, so at most 8 madd_distinct_packed launches); commit
-     once more under torch.profiler (the device-busy share of its wall time
-     and its five largest kernels by device time); then the check stage's
-     two MSMs and its pairing, timed apart on the same inputs;
+     once more under torch.profiler (the device-busy share of its wall time,
+     its five largest kernels by device time and host operations by host
+     time); then the check stage's two MSMs and its pairing, timed apart on
+     the same inputs;
   5. ntt: a 2^22-point NTT and iNTT over BN254 Fr (K4b + K4c) and a 2^9 one
-     (K4a), against the portable field-last route, the round trip and host
-     Horner at four points;
+     (one K4a launch each), against the portable field-last route, the
+     round trip and host Horner at four points;
   6. ligero: MultilinearLigero over BN254 Fr at 22 variables, then
      UnivariateLigero over BLS12-381 Fr at degree 2^20 - 1, setup -> commit
      -> batch_open -> batch_check, the value against a host evaluation, a
@@ -44,8 +50,9 @@ Phases, one JSON line each (times in ms):
   8. ipa: InnerProductArgPC over JubJub at degree 2^16 - 1, one hiding
      polynomial, hash-to-curve -> setup -> trim -> commit -> batch_open ->
      batch_check, the value against host Horner, a tampered value rejected;
-     then open again with its MSMs, their host window folds and the key
-     folds timed apart.
+     then open again with its MSMs, their host window folds, the key
+     folds and the inner products timed apart, and the first round's key
+     fold once under torch.profiler.
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -229,15 +236,17 @@ class Smoke:
     # (normalisation) and sub (point negation), the scalar field's mul and
     # add (from_mont, evaluation, division)
     MAIN_PATH_FF = ("ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]", "ff_sub[fq_bls12_381]",
-                    "ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")
+                    "ff_batch_inv[fq_bls12_381]", "ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")
     # and those the Ligero paths run: the BN254 scalar field's mul, add and
     # sub (tensors, folds, v = b^T M, column bytes) for MultilinearLigero,
     # BLS12-381's mul and add for UnivariateLigero
     LIGERO_FF = {"ml": ("ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]", "ff_sub[fr_bn254]"),
                  "uni": ("ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]")}
-    NTT_KERNELS = ("ntt_butterfly", "ntt_fused_stages", "ntt_stages")
-    # phase 2's K4 shape: Ligero's 256 rows of 2^15 points, and K4a's pairs
+    NTT_KERNELS = ("ntt_small", "ntt_fused_stages", "ntt_stages")
+    # phase 2's K4 shape: Ligero's 256 rows of 2^15 points, and the pairs of
+    # K4a's one-stage form
     NTT_KERNEL_SHAPE = (1 << 23, 15, 1 << 21)
+    NTT_SMALL_LOG_N = 9  # phase 5's K4a transform
     # the K2a entries the main path runs: fixed-base setup's madd and
     # madd_distinct, the MSMs' scan, the lane tree's and Abel sums' add, and
     # setup's doublings (the packed formulas ran the scan before madd_scan)
@@ -259,7 +268,7 @@ class Smoke:
         self.size_totals = {}  # K1 wrapper -> launches by columns, summed over the paths
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
         self.ff_wrappers = {**{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
-                            "ff_pow": ff.mont_pow}
+                            "ff_pow": ff.mont_pow, "ff_batch_inv": ff.batch_inv, "ff_sum": ff.fsum}
         self.wrappers = {
             **self.ff_wrappers,
             **{f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS + ec_lf.G2_WRAPPERS + ec_lf.ED_WRAPPERS},
@@ -270,15 +279,20 @@ class Smoke:
         self.sources = {"ff": "poly_commit_tpu_torch/csrc/ff.cu",
                         "scan": "poly_commit_tpu_torch/csrc/ec_g1.cu",
                         "pow": "poly_commit_tpu_torch/csrc/ff.cu",
+                        "inv": "poly_commit_tpu_torch/csrc/ff.cu",
+                        "sum": "poly_commit_tpu_torch/csrc/ff.cu",
                         "ec": "poly_commit_tpu_torch/csrc/ec_g1.cu",
                         "g2": "poly_commit_tpu_torch/csrc/ec_g2.cu",
                         "ed": "poly_commit_tpu_torch/csrc/ec_ed.cu",
                         "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu",
                         "k4a": ntt_src, "k4b": ntt_src, "k4c": ntt_src}
         # the power: _ff_inv's lax.scan (poly_commit_tpu/core/msm_tpu.py:850)
-        # runs the TPU's K1 once a product
+        # runs the TPU's K1 once a product; the inversion tree and the sum
+        # replace loops of K1 launches (IPA's _fsum, pcs/ipa_pc.py:212)
         self.replaces = {"ff": "poly_commit_tpu/core/ff.py:293",
                          "pow": "poly_commit_tpu/core/ff.py:293",
+                         "inv": "poly_commit_tpu/core/ff.py:293",
+                         "sum": "poly_commit_tpu/core/ff.py:293",
                          "ec": "poly_commit_tpu/core/ec_lf.py:455",
                          # madd_scan: msm_tpu.py:506's lax.scan runs K2a once a step
                          "scan": "poly_commit_tpu/core/ec_lf.py:455",
@@ -422,21 +436,52 @@ class Smoke:
             for op, fn in self.ff_ops.items():
                 got = fn(spec, a, b)
                 want = ff.plain(op, spec, a, b)
-                err = self.canon_err(spec, got, want)
+                err = int((got.long() - want.long()).abs().max())  # bit for bit
                 ok &= err == 0
-                nw = spec.n_limbs // 2
                 ms = time_ms(lambda: fn(spec, a, b), 20)
                 plain_ms = time_ms(lambda: ff.plain(op, spec, a, b), 1)
-                # two operands read, one written, as int32 per 16-bit limb
-                n_bytes = 3 * spec.n_limbs * 4 * n
-                n_imad = (4 * nw * nw + nw) * n if op == "mul" else 0
                 name = f"ff_{fn.__name__}[{spec.name}]"
                 line = {"phase": "kernels", "kernel": name, "n": n, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms}
                 if spec is FP.FQ_BLS12_377:  # not on the main path: no table entry
                     emit(line)
                     continue
+                line["device_ms"] = graph_ms(lambda: fn(spec, a, b), 20)
+                n_bytes, n_imad = self.ff_work(spec, op, n)
                 emit({**line, **self.entry(name, "ff", err, ms, plain_ms, n_bytes, n_imad)})
+        return ok and self.check_ff_small()
+
+    @staticmethod
+    def ff_work(spec, op, n):
+        """Bytes (two operands read, one written, int32 per 16-bit limb) and
+        IMADs of one elementwise K1 launch on n columns."""
+        nw = spec.n_limbs // 2
+        return 3 * spec.n_limbs * 4 * n, (4 * nw * nw + nw) * n if op == "mul" else 0
+
+    # the columns most K1 launches of the paths take (a batch of a few
+    # thousand points or fewer, one value)
+    FF_SMALL_COLUMNS = (1 << 10, 1)
+
+    def check_ff_small(self):
+        """The elementwise K1 ops bit for bit at FF_SMALL_COLUMNS on the
+        24- and 16-limb builds, through the wrapper (``ms``) and from a CUDA
+        graph (``device_ms``: the launches alone, without the wrapper's host
+        work)."""
+        from poly_commit_tpu_torch.core import ff
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        ok = True
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381):
+            for n in self.FF_SMALL_COLUMNS:
+                a, b = self.lazy(spec, n), self.lazy(spec, n)
+                for op, fn in self.ff_ops.items():
+                    err = int((fn(spec, a, b).long() - ff.plain(op, spec, a, b).long()).abs().max())
+                    ok &= err == 0
+                    emit({"phase": "kernels", "kernel": f"ff_{fn.__name__}[{spec.name}]", "n": n,
+                          "max_abs_err": err, "ms": time_ms(lambda: fn(spec, a, b), 200),
+                          "device_ms": graph_ms(lambda: fn(spec, a, b), 200),
+                          "plain_ms": time_ms(lambda: ff.plain(op, spec, a, b), 5),
+                          **self.bound(*self.ff_work(spec, op, n))})
         return ok
 
     POW_COLUMNS = (1, 1 << 12)  # a product-tree root (the paths' shape), and a batch
@@ -460,9 +505,8 @@ class Smoke:
         paths run (Fq-381: G1 and Fq2 normalisation; Fr-381: JubJub), at
         the paths' one column (the table entry) and at 2^12, timed beside
         the chain of mul launches it replaced (``chain_ms``, equal limb for
-        limb); then one batch_inv of 2^12 columns makes one pow launch and
-        only its product tree's mul launches."""
-        from poly_commit_tpu_torch.core import ff, msm_gpu
+        limb)."""
+        from poly_commit_tpu_torch.core import ff
         from poly_commit_tpu_torch.core import field_params as FP
 
         ok = True
@@ -493,20 +537,129 @@ class Smoke:
                     emit({**line, **self.bound(n_bytes, n_imad)})
                     continue
                 emit({**line, **self.entry(name, "pow", err, ms, plain_ms, n_bytes, n_imad)})
-            x = self.lazy(spec, self.POW_COLUMNS[-1])
-            pows, muls = ff.mont_pow.launches, ff.mont_mul.launches
-            inv = msm_gpu.batch_inv(spec, x)
-            launches = {"pow": ff.mont_pow.launches - pows, "mul": ff.mont_mul.launches - muls}
-            # x * x^-1 == 1 in every column (random columns are nonzero)
-            one = ff.canonicalize(spec, ff.mont_mul(spec, x, inv))
-            inverted = bool((one == ff.one_mont(spec, 1, self.dev)).all())
-            levels = self.POW_COLUMNS[-1].bit_length() - 1
-            tree_only = launches == {"pow": 1, "mul": 3 * levels}
-            ok &= inverted and tree_only
-            emit({"phase": "kernels", "check": "batch_inv", "field": spec.name,
-                  "m": self.POW_COLUMNS[-1], "launches": launches, "inverted": inverted,
-                  "one_pow_and_the_tree_only": tree_only})
         return ok
+
+    MAX_INV_LAUNCHES = 6  # a batched inversion of 2^20 columns: its tree's levels and one power
+    # setup's normalisation (2^20 G1 points) and IPA-PC's first key fold
+    # (2^15 JubJub points)
+    INV_COLUMNS = {"fq_bls12_381": 1 << 20, "fr_bls12_381": 1 << 15}
+
+    @staticmethod
+    def tree_loop(spec, a):
+        """Inverses as the port computed them before ``ff.batch_inv``: a
+        product tree of K1 mul launches up, one ``mont_pow`` on its root,
+        two mul launches a level down, PyTorch copies between them."""
+        import torch
+
+        from poly_commit_tpu_torch.core import ff
+
+        L, m = a.shape
+        dev = a.device
+        zero = ff.is_zero(spec, a)
+        n2 = 1 << max(0, (m - 1).bit_length())
+        cur = ff.select(zero, ff.one_mont(spec, m, dev), a)
+        if n2 != m:
+            cur = torch.cat([cur, ff.one_mont(spec, n2 - m, dev)], 1)
+        levels = [cur]
+        while cur.shape[1] > 1:
+            cur = ff.mont_mul(spec, cur[:, 0::2].contiguous(), cur[:, 1::2].contiguous())
+            levels.append(cur)
+        inv = ff.mont_pow(spec, cur, spec.modulus - 2)
+        for lvl in reversed(levels[:-1]):
+            inv_l = ff.mont_mul(spec, inv, lvl[:, 1::2].contiguous())
+            inv_r = ff.mont_mul(spec, inv, lvl[:, 0::2].contiguous())
+            inv = torch.stack([inv_l, inv_r], dim=2).reshape(L, -1)
+        return ff.select(zero, ff.zeros(spec, m, dev), inv[:, :m].contiguous())
+
+    def check_batch_inv(self):
+        """K1's inversion tree against its plain version (canonical values)
+        at INV_COLUMNS, lazy values with a zero column and an unreduced zero
+        (p); timed beside the loop of launches it replaced (``chain_ms``,
+        equal in canonical values). One call launches only the tree's levels
+        and one ``mont_pow``, at most MAX_INV_LAUNCHES kernels, and
+        x * x^-1 = 1 in every nonzero column, zero in the zero ones."""
+        from poly_commit_tpu_torch.core import ff
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        torch = self.torch
+        ok = True
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381):
+            m = self.INV_COLUMNS[spec.name]
+            x = self.lazy(spec, m)
+            x[:, 0] = 0
+            x[:, 1] = ff.consts(spec, self.dev, 0)[:, 0].to(torch.int32)
+            before = {k: w.launches for k, w in self.ff_wrappers.items()}
+            got = ff.batch_inv(spec, x)
+            launches = {k: w.launches - before[k] for k, w in self.ff_wrappers.items()}
+            launches = {k: v for k, v in launches.items() if v}
+            want, plain_ms = run_ms(lambda: ff.batch_inv_plain(spec, x))
+            err = self.canon_err(spec, got, want)
+            del want
+            chain_err = self.canon_err(spec, self.tree_loop(spec, x), got)
+            one = ff.canonicalize(spec, ff.plain("mul", spec, x, got))
+            nonzero = ~ff.is_zero(spec, x)
+            inverted = (bool((one[:, nonzero] == ff.one_mont(spec, 1, self.dev)).all())
+                        and not bool(one[:, ~nonzero].any()))
+            tree_only = set(launches) == {"ff_batch_inv", "ff_pow"} and launches["ff_pow"] == 1
+            few = sum(launches.values()) <= self.MAX_INV_LAUNCHES
+            ok &= err == 0 and chain_err == 0 and inverted and tree_only and few
+            ms = time_ms(lambda: ff.batch_inv(spec, x), 10)
+            chain_ms = time_ms(lambda: self.tree_loop(spec, x), 3)
+            # the columns read once and their inverses written once; three
+            # products a column (one up, two down) and the root's power
+            e = spec.modulus - 2
+            products = 3 * m + e.bit_length() + bin(e).count("1")
+            nw = spec.n_limbs // 2
+            name = f"ff_batch_inv[{spec.name}]"
+            bounds = self.entry(name, "inv", err, ms, plain_ms, 2 * spec.n_limbs * 4 * m,
+                                products * (4 * nw * nw + nw))
+            emit({"phase": "kernels", "kernel": name, "m": m, "max_abs_err": err,
+                  "chain_max_abs_err": chain_err, "launches": launches, "inverted": inverted,
+                  "tree_and_one_pow_only": tree_only, f"at_most_{self.MAX_INV_LAUNCHES}": few,
+                  "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms, **bounds})
+        return ok
+
+    SUM_COLUMNS = 1 << 16  # an inner product of IPA-PC at degree 2^16 - 1
+
+    @staticmethod
+    def halving_loop(spec, a):
+        """The sum as IPA-PC's ``_fsum`` computed it before ``ff.fsum``: a
+        halving loop of field-last adds (transposes, one K1 add launch and a
+        canonicalisation each)."""
+        from poly_commit_tpu_torch.core import ff
+        from poly_commit_tpu_torch.core import field as F
+
+        fl = ff.to_field_last(a, (a.shape[1],))
+        while fl.shape[0] > 1:
+            half = fl.shape[0] // 2
+            fl = F.add(spec, fl[:half], fl[half : 2 * half])
+        return ff.from_field_last(fl)
+
+    def check_fsum(self):
+        """K1's field sum against its plain version (canonical values) at
+        SUM_COLUMNS of Fr-JubJub, lazy values, in at most two launches;
+        timed beside the halving loop it replaced (``chain_ms``)."""
+        from poly_commit_tpu_torch.core import ff
+        from poly_commit_tpu_torch.core import field_params as FP
+
+        spec, n = FP.FR_JUBJUB, self.SUM_COLUMNS
+        a = self.lazy(spec, n)
+        before = ff.fsum.launches
+        got = ff.fsum(spec, a)
+        launches = ff.fsum.launches - before
+        err = self.canon_err(spec, got, ff.fsum_plain(spec, a))
+        chain_err = self.canon_err(spec, got, self.halving_loop(spec, a))
+        ms = time_ms(lambda: ff.fsum(spec, a), 50)
+        device_ms = graph_ms(lambda: ff.fsum(spec, a), 50)
+        chain_ms = time_ms(lambda: self.halving_loop(spec, a), 5)
+        plain_ms = time_ms(lambda: ff.fsum_plain(spec, a), 1)
+        # the columns read once, the sum written once; no products
+        bounds = self.entry(f"ff_sum[{spec.name}]", "sum", err, ms, plain_ms,
+                            spec.n_limbs * 4 * (n + 1), 0)
+        emit({"phase": "kernels", "kernel": f"ff_sum[{spec.name}]", "n": n, "max_abs_err": err,
+              "chain_max_abs_err": chain_err, "launches": launches, "ms": ms,
+              "device_ms": device_ms, "chain_ms": chain_ms, "plain_ms": plain_ms, **bounds})
+        return err == 0 and chain_err == 0 and launches <= 2
 
     def host_points(self, group, n, seed):
         """n distinct affine points a G + i b G (host Jacobian walk, one
@@ -919,39 +1072,50 @@ class Smoke:
         return ok
 
     def check_ntt_kernels(self):
-        """K4a, K4b and K4c against their plain versions at the Ligero path's
-        shape (256 rows of 2^15 points: 2^23 elements; K4c over the four
-        stages past the block, 11-14, in one launch, as the path runs it,
-        bit for bit), K4a on 2^21 pairs; both scalar fields, timed on BN254's
-        (one 8-word build serves both). K4c is also timed beside the chain
-        of one-stage launches of the same stages (``chain_ms``, equal limb
-        for limb) and at one stage (``one_stage_ms``)."""
+        """K4a, K4b and K4c against their plain versions: K4b and K4c at the
+        Ligero path's shape (256 rows of 2^15 points: 2^23 elements; K4c
+        over the four stages past the block, 11-14, in one launch, as the
+        path runs it, bit for bit); K4a (``small``) at phase 5's 2^9-point
+        transform, bit for bit, and its one-stage form (``butterfly``, off
+        the paths) on 2^21 pairs; both scalar fields, timed on BN254's (one
+        8-word build serves both). K4a and K4c are also timed beside the
+        chain of one-stage launches of the same stages (``chain_ms``, equal
+        limb for limb), K4c also at one stage (``one_stage_ms``)."""
         from poly_commit_tpu_torch.core import ff, ntt_lf
         from poly_commit_tpu_torch.core import field_params as FP
         from poly_commit_tpu_torch.core import ntt as NTT
 
         torch = self.torch
         total, log_n, pairs = self.NTT_KERNEL_SHAPE
+        small_log_n = self.NTT_SMALL_LOG_N
         block = ntt_lf.FUSE_BLOCK
         n_fused = s_big = block.bit_length() - 1
         big = range(s_big, log_n)  # K4c's stages at this shape, one launch
-        errs = {"k4a": 0, "k4b": 0, "k4c": 0}
+        errs = {"k4a": 0, "k4a_stage": 0, "k4b": 0, "k4c": 0}
         for spec in (FP.FR_BLS12_381, FP.FR_BN254):
             lazy = lambda n: ff.plain("add", spec, self.rand_field(spec, n), self.rand_field(spec, n))  # noqa: E731
             tws = NTT.stage_twiddles(spec, log_n, False, self.dev)
+            small_tws = NTT.stage_twiddles(spec, small_log_n, False, self.dev)
             table = ntt_lf.fused_table(tws, n_fused)
-            a = lazy(total)
+            a, x = lazy(total), lazy(1 << small_log_n)
             u, w, tw = lazy(pairs), lazy(pairs), lazy(pairs)
             runs = {
-                "k4a": (lambda: ntt_lf.butterfly(spec, u, w, tw),
-                        lambda: ntt_lf.butterfly_plain(spec, u, w, tw)),
+                "k4a": (lambda: ntt_lf.small(spec, x, small_tws),
+                        lambda: ntt_lf.small_plain(spec, x, small_tws)),
+                "k4a_stage": (lambda: ntt_lf.butterfly(spec, u, w, tw),
+                              lambda: ntt_lf.butterfly_plain(spec, u, w, tw)),
                 "k4b": (lambda: ntt_lf.fused_stages(spec, a, table, n_fused, block),
                         lambda: ntt_lf.fused_stages_plain(spec, a, table, n_fused, block)),
                 "k4c": (lambda: ntt_lf.stages(spec, a, tws[s_big:], s_big),
                         lambda: ntt_lf.stages_plain(spec, a, tws[s_big:], s_big)),
             }
 
-            def chain():  # K4c's stages one launch each, as before the multi-stage kernel
+            def chain(kind):  # the stages one launch each, as before the kernel
+                if kind == "k4a":  # K4a's one-stage form on split halves
+                    out = x
+                    for s in range(small_log_n):
+                        out = ntt_lf._by_stage(ntt_lf.butterfly, spec, out, small_tws[s], s)
+                    return out
                 out = a
                 for s in big:
                     out = ntt_lf.stage(spec, out, tws[s], s)
@@ -959,12 +1123,12 @@ class Smoke:
 
             for kind, (kernel, plain) in runs.items():
                 got, want = kernel(), plain()
-                got, want = (got, want) if kind != "k4a" else (torch.cat(got, 1), torch.cat(want, 1))
+                if kind == "k4a_stage":  # the (lo, hi) halves side by side
+                    got, want = torch.cat(got, 1), torch.cat(want, 1)
                 err = self.canon_err(spec, got, want)
-                if kind == "k4c":  # bit for bit, on the raw limbs
-                    err = max(err, int((got.long() - want.long()).abs().max()))
-                    chain_err = int((chain().long() - got.long()).abs().max())
-                    err = max(err, chain_err)
+                if kind in ("k4a", "k4c"):  # bit for bit, on the raw limbs
+                    err = max(err, int((got.long() - want.long()).abs().max()),
+                              int((chain(kind).long() - got.long()).abs().max()))
                 errs[kind] = max(errs[kind], err)
                 line = {"phase": "kernels", "kernel": kind, "field": spec.name, "max_abs_err": err}
                 if spec is not FP.FR_BN254:
@@ -972,9 +1136,18 @@ class Smoke:
                     continue
                 ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 1)
                 L4 = spec.n_limbs * 4  # bytes of one element at int32 per 16-bit limb
-                if kind == "k4a":  # u, w, tw read; lo, hi written
+                if kind == "k4a":  # each element read and written once, the twiddles read once
+                    n = 1 << small_log_n
+                    name = "ntt_small"
+                    n_bytes = 2 * n * L4 + (n - 1) * L4
+                    n_imad = small_log_n * (n // 2) * IMAD_PER_PRODUCT
+                    shape = {"total": n, "stages": small_log_n, "device_ms": graph_ms(kernel, 20),
+                             "chain_ms": time_ms(lambda: chain("k4a"), 20)}
+                elif kind == "k4a_stage":  # u, w, tw read; lo, hi written
                     name, n_bytes, n_imad = "ntt_butterfly", 5 * pairs * L4, pairs * IMAD_PER_PRODUCT
-                    shape = {"pairs": pairs}
+                    emit({**line, "kernel": name, "pairs": pairs, "ms": ms, "plain_ms": plain_ms,
+                          **self.bound(n_bytes, n_imad)})
+                    continue
                 elif kind == "k4b":  # each element read and written once, the table read once
                     name = "ntt_fused_stages"
                     n_bytes = 2 * total * L4 + table.shape[1] * L4
@@ -985,11 +1158,11 @@ class Smoke:
                     n_bytes = 2 * total * L4 + sum(1 << s for s in big) * L4
                     n_imad = len(big) * (total // 2) * IMAD_PER_PRODUCT
                     shape = {"total": total, "stages": [big[0], big[-1]],
-                             "chain_ms": time_ms(chain, 20),
+                             "chain_ms": time_ms(lambda: chain("k4c"), 20),
                              "one_stage_ms": time_ms(lambda: ntt_lf.stage(spec, a, tws[s_big], s_big), 20)}
                 bounds = self.entry(name, kind, None, ms, plain_ms, n_bytes, n_imad)
                 emit({**line, "kernel": name, **shape, "ms": ms, "plain_ms": plain_ms, **bounds})
-            del a, u, w, tw, runs
+            del a, x, u, w, tw, runs
         for kind, name in zip(("k4a", "k4b", "k4c"), self.NTT_KERNELS):
             self.kernels[name]["max_abs_err"] = errs[kind]  # over both fields
         return all(e == 0 for e in errs.values())
@@ -1127,9 +1300,10 @@ class Smoke:
     def profile(self, fn, top=5):
         """fn() once under torch.profiler (CPU and CUDA activities): its host
         wall ms, the device-busy ms (the union of the device activities'
-        intervals: kernels, copies, sets) and its share of the wall time, and
-        the ``top`` kernels by summed device time. The profiler's own host
-        overhead is in the wall time."""
+        intervals: kernels, copies, sets) and its share of the wall time, the
+        ``top`` kernels by summed device time and the ``top`` host operations
+        by their own host time. The profiler's own host overhead is in the
+        wall time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1151,10 +1325,13 @@ class Smoke:
             ms, calls = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, calls + 1)
         ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
         return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                 "device_busy_share": busy_us / 1e3 / wall_ms, "device_activities": len(device),
                 "top_kernels": [{"name": n[:120], "device_ms": ms, "calls": c}
-                                for n, (ms, c) in ranked]}
+                                for n, (ms, c) in ranked],
+                "top_host_ops": [{"name": e.key[:80], "self_host_ms": e.self_cpu_time_total / 1e3,
+                                  "calls": e.count} for e in host]}
 
     # -- phase 5 ----------------------------------------------------------
     def ntt_path(self):
@@ -1179,6 +1356,8 @@ class Smoke:
         launches, by_field, ff_by_size = self.read_counts()
         needed = list(self.NTT_KERNELS) + ["ff_mont_mul[fr_bn254]"]
         all_launched = self.all_launched(launches, by_field, needed)
+        # the 2^9 transform and its inverse: one K4a launch each
+        small_in_one = launches["ntt_small"] == 2 and launches["ntt_butterfly"] == 0
 
         checks = {}
         for name, a in (("big", big), ("small", small)):
@@ -1210,8 +1389,8 @@ class Smoke:
               "checks": checks, "ms": ms, "intt_ms": intt_ms, "portable_ms": portable_ms,
               **bounds, "launches": launches,
               "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
-              "all_kernels_launched": all_launched})
-        return all(checks.values()) and all_launched
+              "all_kernels_launched": all_launched, "small_transform_in_one_launch": small_in_one})
+        return all(checks.values()) and all_launched and small_in_one
 
     # -- phase 6 ----------------------------------------------------------
     def ligero_path(self, which):
@@ -1343,7 +1522,7 @@ class Smoke:
         needed = [f"ec_{w}" for w in ("g2_madd", "g2_madd_distinct", "g2_madd_distinct_packed",
                                       "g2_add", "g2_double", "madd_scan", "add")]
         needed += ["digit_sort", "ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]",
-                   "ff_mont_mul[fr_bls12_381]"]
+                   "ff_batch_inv[fq_bls12_381]", "ff_mont_mul[fr_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
         emit({"phase": "multilinear_pc", "scheme": "MultilinearPC/BLS12-381", "num_vars": nv,
               "stage_ms": stages, "check_split_ms": split, "open_split_ms": open_split,
@@ -1356,7 +1535,11 @@ class Smoke:
     # -- phase 8 ----------------------------------------------------------
     def ipa_path(self):
         """InnerProductArgPC over JubJub at degree 2^IPA_LOG_DEGREE - 1, one
-        hiding polynomial; setup's hash-to-curve is its own stage."""
+        hiding polynomial; setup's hash-to-curve is its own stage. After the
+        counted run: open again with its parts timed apart, and one key fold
+        under torch.profiler."""
+        import random
+
         from poly_commit_tpu_torch.core import field as F
         from poly_commit_tpu_torch.core import msm_gpu
         from poly_commit_tpu_torch.core.transcript import PoseidonSponge
@@ -1396,9 +1579,11 @@ class Smoke:
         launches, by_field, ff_by_size = self.read_counts()
 
         # open again, its parts timed apart: every MSM (the hiding commit and
-        # two a round), within them the host window folds, and the key folds;
-        # the rest is host work (transcript, h' terms, conversions)
-        with spans([(ipa_pc.M, "msm_mont"), (msm_gpu, "_fold_host"), (ipa_pc, "fold_key")]) as parts:
+        # two a round), within them the host window folds, the key folds and
+        # the inner products (two a round); the rest is host work
+        # (transcript, h' terms, conversions)
+        with spans([(ipa_pc.M, "msm_mont"), (msm_gpu, "_fold_host"), (ipa_pc, "fold_key"),
+                    (ipa_pc, "_inner_product")]) as parts:
             open_ms = {}
             stage("open", lambda: PC.batch_open(ck, [lp], comms, query_set, PoseidonSponge(spec),
                                                 states, HostRng(7)), open_ms)
@@ -1406,28 +1591,37 @@ class Smoke:
                       **{f"{k}_ms": ms for k, (ms, _) in parts.items()},
                       **{f"{k}_calls": calls for k, (_, calls) in parts.items()}}
         open_split["rest_ms"] = (open_ms["open"] - open_split["msm_mont_ms"]
-                                 - open_split["fold_key_ms"])
+                                 - open_split["fold_key_ms"] - open_split["_inner_product_ms"])
+
+        # the first round's key fold (2^15 points) once under torch.profiler
+        half = ck.comm_key[0].shape[0] // 2
+        k_l, k_r = (tuple(a[cut] for a in ck.comm_key) for cut in (slice(half), slice(half, None)))
+        challenge = random.Random(9).getrandbits(252)
+        fold_profile = self.profile(lambda: ipa_pc.fold_key(k_l, k_r, challenge))
 
         acc = 0
         for c in reversed(F.to_ints(spec, coeffs)):
             acc = (acc * z + c) % p
         value_ok = values[("p", z)] == acc
         needed = ["ec_ed_madd_packed", "ec_ed_add", "ec_ed_smul", "digit_sort",
-                  "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_mont_mul[fr_bls12_381]",
-                  "ff_pow[fr_bls12_381]"]
+                  "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_sum[fr_jubjub]",
+                  "ff_mont_mul[fr_bls12_381]", "ff_pow[fr_bls12_381]", "ff_batch_inv[fr_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
-        # each round's key fold is one ed_smul launch
+        # each round's key fold is one ed_smul launch; each of its two inner
+        # products at most two ff_sum launches
         rounds = len(proofs[0].l_vec)
         one_smul_a_round = launches["ec_ed_smul"] == rounds
+        sums_ok = launches["ff_sum"] <= 2 * 2 * rounds
         emit({"phase": "ipa", "scheme": "InnerProductArgPC/JubJub", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "open_split_ms": open_split, "check": bool(ok),
               "tampered_rejected": rejected,
               "value_matches_host": value_ok, "rounds": rounds, "launches": launches,
-              "one_ed_smul_a_round": one_smul_a_round,
+              "one_ed_smul_a_round": one_smul_a_round, "inner_products_in_two_launches": sums_ok,
               "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched,
               "peak_mem_gb": peak_gb})
-        return bool(ok) and rejected and value_ok and all_launched and one_smul_a_round
+        emit({"phase": "ipa_fold_profile", "points": half, **fold_profile})
+        return bool(ok) and rejected and value_ok and all_launched and one_smul_a_round and sums_ok
 
 
 def main() -> int:
@@ -1445,6 +1639,7 @@ def main() -> int:
     try:
         name_power = smoke.environment()
         results = {"ff": smoke.check_ff(), "ff_pow": smoke.check_ff_pow(),
+                   "ff_batch_inv": smoke.check_batch_inv(), "ff_sum": smoke.check_fsum(),
                    "ec": smoke.check_ec(), "g2": smoke.check_g2(),
                    "ed": smoke.check_ed(), "sort": smoke.check_sort(),
                    "ntt_kernels": smoke.check_ntt_kernels(), "msm": smoke.check_msm(),

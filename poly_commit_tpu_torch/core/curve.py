@@ -200,11 +200,9 @@ class EdwardsGroup:
 
     def to_affine(self, p):
         """(x, y, inf): x/z, y/z by one batched inversion on the device."""
-        from .msm_gpu import batch_inv
-
         shape = tuple(p[0].shape[:-1])
         x, y, z, _ = self._lf(p, shape)
-        zi = batch_inv(self.spec, z)
+        zi = ff.batch_inv(self.spec, z)
         ax, ay = ff.mont_mul(self.spec, x, zi), ff.mont_mul(self.spec, y, zi)
         return (*self._fl((ax, ay), shape), self.is_infinity(p))
 

@@ -66,12 +66,10 @@ def sub_lf(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def batch_inv_lf(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Inverses of the columns of a (2L, M) (zero maps to zero):
     1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 - nr a1^2), the norms inverted
-    together by core/msm_gpu.py's batched Fermat inversion."""
-    from .msm_gpu import batch_inv
-
+    together by ``ff.batch_inv`` (one Fermat inversion)."""
     a0, a1 = _halves(spec, a)
     norm = ff.add(spec, ff.mont_mul(spec, a0, a0), _small(spec, ff.mont_mul(spec, a1, a1)))
-    ninv = batch_inv(spec, norm)
+    ninv = ff.batch_inv(spec, norm)
     zero = torch.zeros_like(a1)
     return torch.cat([ff.mont_mul(spec, a0, ninv),
                       ff.sub(spec, zero, ff.mont_mul(spec, a1, ninv))], 0)

@@ -13,29 +13,32 @@ K1 replaces ``_pallas_fn`` (poly_commit_tpu/core/ff.py:293), the Pallas
 kernel that fuses ``_mont_mul_rows`` / ``_add_rows`` / ``_sub_rows`` over
 1024-lane tiles. Here (csrc/ff.cu) one thread owns one element: it packs
 the limb pairs into L/2 32-bit words in registers and runs a CIOS
-Montgomery product with 64-bit accumulators (4(L/2)^2 + L/2 32-bit
-multiplies), then writes 16-bit limbs back. What bounds it on the card: a
-multiply moves 12 L bytes per element and does 4(L/2)^2 + L/2 IMADs, which
-at L = 24 is ~2 IMAD per byte -- under the IMAD/bandwidth ratio, so it is
-bound by bytes; add and sub are bound by bytes. The design keeps every
-temporary in registers, so each element is read and written exactly once.
+Montgomery product (4(L/2)^2 + L/2 32-bit multiply-adds), then writes
+16-bit limbs back. What bounds it on the card: a multiply moves 12 L bytes
+per element and does 4(L/2)^2 + L/2 IMADs, which at L = 24 is ~2 IMAD per
+byte -- under the IMAD/bandwidth ratio, so it is bound by bytes; add and
+sub are bound by bytes. The design keeps every temporary in registers, so
+each element is read and written exactly once. Most launches on the paths
+have few columns, where the launch latency and the wrapper's host work
+bound them instead.
 
-``mont_pow`` (a^e for a Python-int exponent) is the Fermat chain of every
-batched inversion. The JAX package runs it as one ``lax.scan`` of
-``mont_mul`` (poly_commit_tpu/core/msm_tpu.py::_ff_inv); here it is one
-launch of ``pc_ff_pow`` in place of one launch a product (610 for an
-Fq-381 inverse): one thread per column runs the whole square-and-multiply
-chain in registers. Its columns are few (a product-tree root: one), so it
-is bound by the latency of one dependent chain of products, not by bytes
-or by the IMAD rate.
+Three more entries replace loops of K1 launches:
 
-Beside each kernel sits its plain PyTorch version (int64 limb arithmetic,
-vectorised over the limb axis); the wrappers take it only for tensors on the
-CPU. On a CUDA tensor a wrapper launches the kernel or raises. Each wrapper
-counts its launches in ``<wrapper>.launches``, per field spec in
-``<wrapper>.launches_by_field`` (the 8- and 12-word kernels are separate
-builds, and the scalar field's takes the post-reduce branch) and per number
-of columns in ``<wrapper>.launches_by_size`` (``SIZE_CLASSES``).
+* ``mont_pow`` (a^e for a Python-int exponent) is the Fermat chain of every
+  batched inversion. The JAX package runs it as one ``lax.scan`` of
+  ``mont_mul`` (poly_commit_tpu/core/msm_tpu.py::_ff_inv); here it is one
+  launch of ``pc_ff_pow`` in place of one launch a product (610 for an
+  Fq-381 inverse): one thread per column runs the whole square-and-multiply
+  chain in registers, bound by the latency of that chain.
+* ``batch_inv`` inverts M columns with one Fermat chain: ``pc_ff_batch_inv``
+  builds each 2^10-column block's product tree in shared memory and writes
+  its root (one launch a level, two levels up to 2^20 columns), the last
+  root takes one ``mont_pow``, and the same kernel walks each level's trees
+  down again: 5 launches at M = 2^20 where the tree of K1 launches took
+  3 log2 M + 1 and ~100 PyTorch operations.
+* ``fsum`` adds the N columns of an operand (IPA-PC's inner products) with
+  ``pc_ff_sum``: one launch up to 2^10 columns, else a grid of block sums
+  and one launch over its partials, where the halving loop took log2 N.
 """
 
 from __future__ import annotations
@@ -234,6 +237,13 @@ def _lib():
                               ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
                               ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
     lib.pc_ff_pow.restype = ctypes.c_int
+    lib.pc_ff_batch_inv.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+    lib.pc_ff_batch_inv.restype = ctypes.c_int
+    lib.pc_ff_sum.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+    lib.pc_ff_sum.restype = ctypes.c_int
     return lib
 
 
@@ -320,7 +330,120 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     return out
 
 
-WRAPPERS = (mont_mul, add, sub, mont_pow)
+TREE_LOG_LEAVES = 10  # columns a block of the inversion tree (csrc/ff.cu's kTreeLogLeaves)
+
+
+def batch_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Inverses of the M columns of a (zeros map to zero) on any device: a
+    product tree up, its root inverted by one Fermat power (a^(p-2), the
+    JAX package's ``_ff_inv`` chain), then inv(child) = inv(parent) *
+    sibling down the tree, each level one plain product."""
+    check_limbs(spec, a)
+    L, m = a.shape
+    dev = a.device
+    zero = is_zero(spec, a)
+    n2 = 1 << max(0, (m - 1).bit_length())
+    cur = select(zero, one_mont(spec, m, dev), a)
+    if n2 != m:
+        cur = torch.cat([cur, one_mont(spec, n2 - m, dev)], 1)
+    levels = [cur]
+    while cur.shape[1] > 1:
+        cur = plain("mul", spec, cur[:, 0::2].contiguous(), cur[:, 1::2].contiguous())
+        levels.append(cur)
+    inv = plain_pow(spec, cur, spec.modulus - 2)
+    for lvl in reversed(levels[:-1]):
+        left = lvl[:, 0::2].contiguous()
+        right = lvl[:, 1::2].contiguous()
+        inv_l = plain("mul", spec, inv, right)
+        inv_r = plain("mul", spec, inv, left)
+        inv = torch.stack([inv_l, inv_r], dim=2).reshape(L, -1)
+    return select(zero, zeros(spec, m, dev), inv[:, :m].contiguous())
+
+
+def _tree_level(spec: FieldSpec, down: bool, src, inv_roots, dst) -> None:
+    """One ``pc_ff_batch_inv`` launch over the columns of src."""
+    n = src.shape[1]
+    log_b = min(TREE_LOG_LEAVES, (n - 1).bit_length())
+    rc = _lib().pc_ff_batch_inv(n_words(spec), int(down), src.data_ptr(), n,
+                                inv_roots.data_ptr() if down else None, dst.data_ptr(), log_b,
+                                kernel_consts(spec), D.stream_of(src))
+    if rc != 0:
+        raise RuntimeError(f"ff batch_inv kernel launch failed: CUDA error {rc}")
+    _count(batch_inv, spec, n)
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Inverses of the M columns of a (values < 2p, zeros map to zero),
+    values < 2p: on a CUDA tensor one ``pc_ff_batch_inv`` launch a level up
+    (each 2^10-column block's root), one ``mont_pow`` on the last root, one
+    launch a level down."""
+    check_limbs(spec, a)
+    if a.device.type == "cpu":
+        return batch_inv_plain(spec, a)
+    D.require_cuda(a)
+    if a.shape[1] == 0:
+        return torch.empty_like(a)
+    levels = [a]
+    while levels[-1].shape[1] > 1:
+        src = levels[-1]
+        n = src.shape[1]
+        roots = src.new_empty((src.shape[0], ((n - 1) >> TREE_LOG_LEAVES) + 1))
+        _tree_level(spec, False, src, None, roots)
+        levels.append(roots)
+    inv = mont_pow(spec, levels[-1], spec.modulus - 2)
+    for src in reversed(levels[:-1]):
+        out = torch.empty_like(src)
+        _tree_level(spec, True, src, inv, out)
+        inv = out
+    return inv
+
+
+SUM_THREADS = 256  # threads a block of pc_ff_sum (csrc/ff.cu's kThreads)
+SUM_BLOCK_COLUMNS = 4 * SUM_THREADS  # columns a block of the first pass adds
+
+
+def fsum_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """The (L, 1) field sum of the N columns of a on any device: zero
+    columns up to a power of two, then the halving loop of plain adds."""
+    check_limbs(spec, a)
+    n = a.shape[1]
+    n2 = 1 << max(0, (n - 1).bit_length())
+    if n2 != n:
+        a = torch.cat([a, zeros(spec, n2 - n, a.device)], 1)
+    while a.shape[1] > 1:
+        half = a.shape[1] // 2
+        a = plain("add", spec, a[:, :half].contiguous(), a[:, half:].contiguous())
+    return a
+
+
+def _sum_pass(spec: FieldSpec, src, dst) -> None:
+    """One ``pc_ff_sum`` launch: dst's columns are the block sums of src."""
+    rc = _lib().pc_ff_sum(n_words(spec), src.data_ptr(), src.shape[1], dst.data_ptr(),
+                          dst.shape[1], kernel_consts(spec), D.stream_of(src))
+    if rc != 0:
+        raise RuntimeError(f"ff sum kernel launch failed: CUDA error {rc}")
+    _count(fsum, spec, src.shape[1])
+
+
+def fsum(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """The field sum of the N columns of a (values < 2p) as an (L, 1)
+    value < 2p: one ``pc_ff_sum`` launch up to SUM_BLOCK_COLUMNS columns,
+    else a grid of at most SUM_THREADS block sums and one launch over them."""
+    check_limbs(spec, a)
+    if a.device.type == "cpu":
+        return fsum_plain(spec, a)
+    D.require_cuda(a)
+    blocks = min(SUM_THREADS, -(-a.shape[1] // SUM_BLOCK_COLUMNS))
+    if blocks > 1:
+        part = a.new_empty((a.shape[0], blocks))
+        _sum_pass(spec, a, part)
+        a = part
+    out = a.new_empty((a.shape[0], 1))
+    _sum_pass(spec, a, out)
+    return out
+
+
+WRAPPERS = (mont_mul, add, sub, mont_pow, batch_inv, fsum)
 for _w in WRAPPERS:
     _w.launches = 0
     _w.launches_by_field = {}  # spec.name -> launches: each field is its own build

@@ -392,37 +392,11 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Inverses of the M columns of a (zeros map to zero) with one Fermat
-    inversion: a product tree up (log2 M launches), the root inverted by
-    one ``ff.mont_pow`` launch (a^(p-2), the JAX package's ``_ff_inv``
-    chain), then inv(child) = inv(parent) * sibling down the tree."""
-    L, m = a.shape
-    dev = a.device
-    zero = ff.is_zero(spec, a)
-    n2 = 1 << max(0, (m - 1).bit_length())
-    cur = ff.select(zero, ff.one_mont(spec, m, dev), a)
-    if n2 != m:
-        cur = torch.cat([cur, ff.one_mont(spec, n2 - m, dev)], 1)
-    levels = [cur]
-    while cur.shape[1] > 1:
-        cur = ff.mont_mul(spec, cur[:, 0::2].contiguous(), cur[:, 1::2].contiguous())
-        levels.append(cur)
-    inv = ff.mont_pow(spec, cur, spec.modulus - 2)
-    for lvl in reversed(levels[:-1]):
-        left = lvl[:, 0::2].contiguous()
-        right = lvl[:, 1::2].contiguous()
-        inv_l = ff.mont_mul(spec, inv, right)
-        inv_r = ff.mont_mul(spec, inv, left)
-        inv = torch.stack([inv_l, inv_r], dim=2).reshape(L, -1)
-    return ff.select(zero, ff.zeros(spec, m, dev), inv[:, :m].contiguous())
-
-
 def jacobian_to_affine(spec: FieldSpec, p):
     """(x, y, z) (L, M) -> affine (x, y) (L, M); infinity maps to (0, 0).
     Counterpart of msm_tpu._jacobian_to_affine, batched over all M."""
     x, y, z = p
-    zi = batch_inv(spec, z)
+    zi = ff.batch_inv(spec, z)
     zi2 = ff.mont_mul(spec, zi, zi)
     return ff.mont_mul(spec, x, zi2), ff.mont_mul(spec, y, ff.mont_mul(spec, zi2, zi))
 

@@ -10,7 +10,9 @@ value below 2p. The dispatch is the JAX package's (``_ntt_lf_body``):
     log2(B) stages of every B-element block at once (all log2 n stages when
     n <= B), then K4c (``stages``) runs the remaining stages over the whole
     array, up to MAX_STAGES of them a launch;
-  - below that, K4a (``butterfly``) runs stage by stage on the split halves;
+  - below that, K4a (``small``) runs all log2 n stages of every row in one
+    launch, in one block's shared memory (``butterfly``, the JAX package's
+    one stage on split halves, stays beside it as K4a's one-stage form);
   - ``intt`` scales by n^-1 with K1.
 
 B is 2^11 here (2^13 on the TPU, whose block does not fit in a Hopper
@@ -33,7 +35,9 @@ from . import ntt as NTT
 from .field_params import FieldSpec
 
 FUSE_BLOCK = 1 << 11  # elements per K4b thread block
-FUSED_MIN_TOTAL = 1024  # smaller transforms take K4a stage by stage
+FUSED_MIN_TOTAL = 1024  # smaller transforms take K4a, one launch for all stages
+SMALL_MAX_TOTAL = 1024  # elements of a K4a launch (csrc/ntt.cu's SMALL_MAX_TOTAL)
+SMALL_MAX_STAGES = 9  # stages of a K4a launch (csrc/ntt.cu's SMALL_MAX_STAGES)
 MAX_STAGES = 6  # K4c stages a launch (csrc/ntt.cu's MAX_STAGES)
 _PLAIN_CHUNK = 1 << 20  # butterflies per plain-version step (bounds its int64 temporaries)
 
@@ -54,9 +58,10 @@ def _lib():
     lib = D.library("ntt")
     ptr, i64, consts = ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32)
     lib.pc_ntt_butterfly.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, consts, ptr]
+    lib.pc_ntt_small.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, consts, ptr]
     lib.pc_ntt_stages.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int, ctypes.c_int, consts, ptr]
     lib.pc_ntt_fused.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int, ctypes.c_int, i64, consts, ptr]
-    for fn in (lib.pc_ntt_butterfly, lib.pc_ntt_stages, lib.pc_ntt_fused):
+    for fn in (lib.pc_ntt_butterfly, lib.pc_ntt_small, lib.pc_ntt_stages, lib.pc_ntt_fused):
         fn.restype = ctypes.c_int
     return lib
 
@@ -110,6 +115,15 @@ def stages_plain(spec: FieldSpec, a, tws, s0: int):
     return a
 
 
+def small_plain(spec: FieldSpec, a, tws):
+    """Stages 0 .. len(tws) - 1 of (L, total), tws[s] stage s's (L, 2^s)
+    twiddles: the chain of ``stage_plain`` calls."""
+    _small_args(spec, a, tws)
+    for s, tw in enumerate(tws):
+        a = stage_plain(spec, a, tw, s)
+    return a
+
+
 def fused_stages_plain(spec: FieldSpec, a, table, n_stages: int, block: int):
     """Stages 0 .. n_stages-1 of every ``block``-element block. Those stages
     never pair across a block, so they run over the whole array at once."""
@@ -139,6 +153,34 @@ def butterfly(spec: FieldSpec, u, w, tw):
                   "ntt butterfly")
         butterfly.launches += 1
     return lo, hi
+
+
+def _small_args(spec: FieldSpec, a, tws) -> None:
+    _check(spec, a, *tws)
+    log_n, total = len(tws), a.shape[1]
+    if not 1 <= log_n <= SMALL_MAX_STAGES or total > SMALL_MAX_TOTAL or total % (1 << log_n):
+        raise ValueError(f"small transform: {log_n} stages of {total} elements, "
+                         f"at most {SMALL_MAX_STAGES} stages of {SMALL_MAX_TOTAL}")
+    for s, tw in enumerate(tws):
+        if tw.shape[1] != 1 << s:
+            raise ValueError(f"stage {s}: twiddles {tw.shape[1]}")
+
+
+def small(spec: FieldSpec, a, tws):
+    """K4a: stages 0 .. log_n - 1 (log_n = len(tws)) of every 2^log_n-element
+    row of (L, total), total <= SMALL_MAX_TOTAL, in one launch; tws[s] is
+    stage s's (L, 2^s) distinct twiddles."""
+    tws = tuple(tws)
+    _small_args(spec, a, tws)
+    if a.device.type == "cpu":
+        return small_plain(spec, a, tws)
+    D.require_cuda(a)
+    out = torch.empty_like(a)
+    ptrs = (ctypes.c_void_p * len(tws))(*[t.data_ptr() for t in tws])
+    _raise_on(_lib().pc_ntt_small(a.data_ptr(), ptrs, out.data_ptr(), a.shape[1], len(tws),
+                                  ff.kernel_consts(spec), D.stream_of(a)), "ntt small")
+    small.launches += 1
+    return out
 
 
 def _stages_args(spec: FieldSpec, a, tws, s0: int) -> None:
@@ -207,10 +249,10 @@ def fused_stages(spec: FieldSpec, a, table, n_stages: int, block: int):
     return out
 
 
-for _w in (butterfly, stages, fused_stages):
+WRAPPERS = (butterfly, fused_stages, stages, small)
+for _w in WRAPPERS:
     _w.launches = 0
 del _w
-WRAPPERS = (butterfly, fused_stages, stages)
 
 
 # ---------------------------------------------------------------------------
@@ -249,9 +291,8 @@ def transform(spec: FieldSpec, a, rows: int, inverse: bool):
             a = fused_stages(spec, a, fused_table(tws, s0), s0, block)
         for s in range(s0, log_n, MAX_STAGES):
             a = stages(spec, a, tws[s : min(s + MAX_STAGES, log_n)], s)
-    else:
-        for s in range(log_n):
-            a = _by_stage(butterfly, spec, a, tws[s], s)
+    elif log_n:
+        a = small(spec, a, tws)
     if inverse:
         n_inv = ff.from_ints(spec, [NTT.domain(spec, log_n)["n_inv"]], device=a.device)
         a = ff.mont_mul(spec, a, n_inv.expand(L, total).contiguous())

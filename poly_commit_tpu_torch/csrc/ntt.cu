@@ -1,7 +1,11 @@
 // K4a, K4b, K4c: radix-2 decimation-in-time NTT stages over (L, N) Fr limbs.
 //
 // Replaces the three Pallas kernels of poly_commit_tpu/core/ntt_lf.py:
-//   K4a pc_ntt_butterfly  <- _butterfly_fn    (one stage on split halves)
+//   K4a pc_ntt_small      <- _butterfly_fn    (every stage of a transform
+//                                             under 1024 elements in one
+//                                             launch; pc_ntt_butterfly is
+//                                             the one stage on split halves
+//                                             of the JAX function)
 //   K4b pc_ntt_fused      <- _fused_stages_fn (the first log2(B) stages of
 //                                             every B-element block, fused)
 //   K4c pc_ntt_stages     <- _big_stage_fn    (stages with half >= B, up to
@@ -14,9 +18,11 @@
 // 8-word fields (BN254 Fr, BLS12-381/377 Fr) take an NTT; the post-reduce
 // of the tighter fields is chosen at run time from the constants.
 //
-// What bounds them on this card: a K4a butterfly moves 5 elements of 64
-// bytes (int32 per 16-bit limb) and does 4*8^2 + 8 = 264 IMADs, ~1 IMAD per
-// byte, below the card's IMAD/bandwidth ratio (~5): bound by bytes. K4b
+// What bounds them on this card: a one-stage butterfly moves 5 elements of
+// 64 bytes (int32 per 16-bit limb) and does 4*8^2 + 8 = 264 IMADs, ~1 IMAD
+// per byte, below the card's IMAD/bandwidth ratio (~5): bound by bytes; K4a's
+// one-launch transform of at most 1023 elements is bound by the latency of
+// its log2 n stages (a product and a barrier each). K4b
 // reads and writes each element once for log2(B) stages and K4c once for
 // its r stages, so both are bound by IMADs (K4c from r = 3 at 2 bytes a
 // limb).
@@ -33,6 +39,16 @@
 // others; 2^12 would hold one block per SM and save one K4c pass of a
 // 2^15-point transform. Small strides (half < 32) still give 2-way bank
 // conflicts; left for a later performance change.
+//
+// K4a design. Below 1024 elements in all, a transform is latency: a 2^9
+// transform was 9 one-stage launches of 256 pairs each, with the host's
+// reshapes between them. pc_ntt_small puts the whole (16, total) array in
+// one block's shared memory (32 KiB at most, word-major as K4b's) and runs
+// all log2 n stages with __syncthreads() between them; rows never pair
+// across each other, so the stage index alone fixes every pair. Stage s
+// reads its (16, 2^s) twiddles, the tensors _by_stage takes, through L2.
+// The butterflies are K4a's, so the result equals the stage chain's bit for
+// bit.
 //
 // K4c design. One stage a launch reads and writes every element once (0.83
 // of the int32 layout's byte bound at 2^23 elements), so the lever is the
@@ -80,6 +96,61 @@ __global__ void __launch_bounds__(THREADS) k_butterfly(const int32_t* __restrict
   butterfly(x, y, t, c);
   fe_store<NW>(lo, n, i, x);
   fe_store<NW>(hi, n, i, y);
+}
+
+constexpr int SMALL_MAX_TOTAL = 1024;  // K4a: elements a launch
+constexpr int SMALL_MAX_STAGES = 9;    // log2 of the longest transform under SMALL_MAX_TOTAL
+
+// The twiddle tables of a K4a launch: stage s's (2 NW, 2^s) limbs.
+struct SmallTw {
+  const int32_t* tw[SMALL_MAX_STAGES];
+};
+
+// K4a: stages 0 .. log_n-1 of every 2^log_n-element row of (2 NW, total).
+__global__ void __launch_bounds__(THREADS) k_small(const int32_t* __restrict__ a, SmallTw tws,
+                                                   int32_t* __restrict__ out, int total,
+                                                   int log_n, FieldConsts c) {
+  __shared__ uint32_t sm[NW * SMALL_MAX_TOTAL];
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint32_t lo = (uint32_t)a[(2 * k) * total + e];
+      uint32_t hi = (uint32_t)a[(2 * k + 1) * total + e];
+      sm[k * total + e] = (lo & 0xFFFFu) | (hi << 16);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < SMALL_MAX_STAGES; ++s) {  // unrolled: tws.tw[s] by a constant index
+    if (s >= log_n) continue;
+    const int half = 1 << s;
+    for (int k = threadIdx.x; k < total / 2; k += blockDim.x) {
+      const int j = k & (half - 1);
+      const int i = ((k >> s) << (s + 1)) | j;
+      Fe<NW> x, y, t;
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        x.w[q] = sm[q * total + i];
+        y.w[q] = sm[q * total + i + half];
+      }
+      fe_load<NW>(t, tws.tw[s], half, j);
+      butterfly(x, y, t, c);
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        sm[q * total + i] = x.w[q];
+        sm[q * total + i + half] = y.w[q];
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint32_t v = sm[k * total + e];
+      out[(2 * k) * total + e] = (int32_t)(v & 0xFFFFu);
+      out[(2 * k + 1) * total + e] = (int32_t)(v >> 16);
+    }
+  }
 }
 
 constexpr int MAX_STAGES = 6;  // K4c stages a launch
@@ -218,6 +289,21 @@ extern "C" int pc_ntt_butterfly(const void* u, const void* w, const void* tw, vo
   k_butterfly<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)u, (const int32_t*)w, (const int32_t*)tw, (int32_t*)lo, (int32_t*)hi, n,
       load_consts(consts));
+  return (int)cudaGetLastError();
+}
+
+// tw: host array of log_n device pointers, stage s's (16, 2^s); total a
+// multiple of 2^log_n and at most SMALL_MAX_TOTAL.
+extern "C" int pc_ntt_small(const void* a, void* const* tw, void* out, int total, int log_n,
+                            const uint32_t* consts, void* stream) {
+  if (log_n < 1 || log_n > SMALL_MAX_STAGES || total < 2 || total > SMALL_MAX_TOTAL ||
+      total % (1 << log_n))
+    return -1;
+  SmallTw tws{};
+  for (int s = 0; s < log_n; ++s) tws.tw[s] = (const int32_t*)tw[s];
+  const int threads = total / 2 < THREADS ? (total / 2 < 32 ? 32 : total / 2) : THREADS;
+  k_small<<<1, threads, 0, (cudaStream_t)stream>>>((const int32_t*)a, tws, (int32_t*)out, total,
+                                                   log_n, load_consts(consts));
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,8 @@ Counterpart of poly_commit_tpu/pcs/ipa_pc.py (the reference's ipa_pc/mod.rs):
 
 The vector work runs on the device of the key: every Pedersen MSM (kernels
 K3 and K2b), the inner products and folds of the coefficients and the
-powers of z (K1 on the JubJub scalar field), and the key fold
+powers of z (K1 on the JubJub scalar field, each inner product one
+product and one ``ff.fsum``), and the key fold
 key_l + ch key_r of each round, whose scalar multiplication is one K2b
 ``ed_smul`` launch through ``JUBJUB.scalar_mul`` (the JAX package runs that
 fold through its portable scan). Hash-to-curve, the transcript and the verifier's O(log d)
@@ -35,6 +36,7 @@ import torch
 
 from .. import device as D
 from ..core import curve as C
+from ..core import ff
 from ..core import field as F
 from ..core import field_params as FP
 from ..core import hostec
@@ -213,16 +215,11 @@ class SuccinctCheckPolynomial:
 # ---------------------------------------------------------------------------
 
 
-def _fsum(a: torch.Tensor) -> torch.Tensor:
-    """Field sum over axis 0 (power-of-two length), log-depth."""
-    while a.shape[0] > 1:
-        half = a.shape[0] // 2
-        a = F.add(SPEC, a[:half], a[half : 2 * half])
-    return a[0]
-
-
 def _inner_product(a: torch.Tensor, b: torch.Tensor) -> int:
-    return F.to_ints(SPEC, _fsum(F.mont_mul(SPEC, a, b)))
+    """<a, b> of two field-last (n, L) vectors: one K1 product of the
+    limbs-first operands, then ``ff.fsum`` (at most two launches)."""
+    prod = ff.mont_mul(SPEC, ff.from_field_last(a), ff.from_field_last(b))
+    return ff.to_ints(SPEC, ff.fsum(SPEC, prod))[0]
 
 
 def _to_host(pt_proj):

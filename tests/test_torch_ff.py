@@ -5,6 +5,8 @@ On the CPU the port's wrappers run their plain versions; the JAX ff runs its
 pure-JAX fallback. Values are compared as canonical ints.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -100,10 +102,9 @@ def test_ff_refuses_bad_operands():
 @pytest.mark.parametrize("spec_name", ["fq381", "fr381"])
 def test_mont_pow_and_batch_inv_match_jax_ff_inv(spec_name):
     """ff.mont_pow (the plain version of the one-launch Fermat chain) and
-    msm_gpu.batch_inv against the JAX package's lax.scan chain
+    ff.batch_inv against the JAX package's lax.scan chain
     (msm_tpu._ff_inv) and host inverses; column 0 is zero."""
     from poly_commit_tpu.core import msm_tpu
-    from poly_commit_tpu_torch.core import msm_gpu
 
     spec = SPECS[spec_name]
     p = spec.modulus
@@ -116,9 +117,85 @@ def test_mont_pow_and_batch_inv_match_jax_ff_inv(spec_name):
     a = torch.from_numpy(limbs.astype(np.int32))
     assert ff.to_ints(spec, ff.mont_pow(spec, a, p - 2)) == want
     assert ff.to_ints(spec, ff.plain_pow(spec, a, p - 2)) == want
-    assert ff.to_ints(spec, msm_gpu.batch_inv(spec, a)) == want
+    assert ff.to_ints(spec, ff.batch_inv(spec, a)) == want
     assert ff.to_ints(spec, ff.mont_pow(spec, a, 0)) == [1] * len(vals)
     assert ff.to_ints(spec, ff.mont_pow(spec, a, 5)) == [pow(v, 5, p) for v in vals]
+
+
+INV_SPECS = {"fq381": FP.FQ_BLS12_381, "fr381": FP.FR_BLS12_381, "fr_bn254": FP.FR_BN254,
+             "fr_jubjub": FP.FR_JUBJUB}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_inverses(spec_name):
+    """Twelve values (0, 1 and p - 1 among them) and their inverses from the
+    JAX package's lax.scan chain (msm_tpu._ff_inv), at the (L, 12) shape the
+    test above also runs."""
+    from poly_commit_tpu.core import msm_tpu
+
+    spec = INV_SPECS[spec_name]
+    p = spec.modulus
+    rng = np.random.default_rng(61 + list(INV_SPECS).index(spec_name))
+    vals = [0, 1, p - 1] + [int.from_bytes(rng.bytes(2 * spec.n_limbs), "little") % p
+                            for _ in range(9)]
+    limbs = np.ascontiguousarray(ff.ints_to_limbs(spec, vals).T)
+    return vals, jff.to_ints(spec, msm_tpu._ff_inv(spec, jnp.asarray(limbs.astype(np.uint32))))
+
+
+@pytest.mark.parametrize("spec_name", list(INV_SPECS))
+@pytest.mark.parametrize("m", [1, 3, 64, 1000, "all_zero"])
+def test_batch_inv_matches_jax(spec_name, m):
+    """ff.batch_inv (on the CPU, its plain version) against the JAX
+    package's inverses: M columns drawn from the twelve values, column 0
+    zero, on canonical and on lazy operands (each value plus p)."""
+    spec = INV_SPECS[spec_name]
+    vals, inv = _jax_inverses(spec_name)
+    assert inv == [pow(v, -1, spec.modulus) if v else 0 for v in vals]
+    if m == "all_zero":
+        idx = [0] * 5
+    else:
+        idx = np.random.default_rng(m).integers(0, len(vals), m).tolist()
+        idx[0] = 0
+    a = ff.from_ints(spec, [vals[i] for i in idx], device="cpu")
+    p_limbs = ff.consts(spec, "cpu", 0).to(torch.int32).expand_as(a).contiguous()
+    lazy = ff.plain("add", spec, a, p_limbs)
+    assert bool((lazy != a).any(0).all()) and torch.equal(ff.canonicalize(spec, lazy), a)
+    for x in (a, lazy):
+        got = ff.batch_inv(spec, x)
+        assert got.shape == x.shape and got.dtype == torch.int32
+        assert ff.to_ints(spec, got) == [inv[i] for i in idx]
+
+
+@pytest.mark.parametrize("spec_name", ["fq381", "fr_jubjub"])
+@pytest.mark.parametrize("n", [0, 1, 2, 5, 64, 1000])
+def test_fsum_matches_host(spec_name, n):
+    """ff.fsum (on the CPU, its plain version) of N lazy columns (values
+    in [0, 2p), both encodings of zero among them) against the host sum."""
+    spec = INV_SPECS[spec_name]
+    rng = np.random.default_rng(70 + n)
+    nb = 2 * spec.n_limbs + 8
+    ints = [int.from_bytes(rng.bytes(nb), "little") % (2 * spec.modulus) for _ in range(n)]
+    if n > 2:
+        ints[1], ints[2] = 0, spec.modulus
+    a = torch.from_numpy(_raw_limbs(spec, ints).astype(np.int32)).reshape(spec.n_limbs, n)
+    got = ff.fsum(spec, a)
+    assert got.shape == (spec.n_limbs, 1) and got.dtype == torch.int32
+    assert ff.limbs_to_ints(spec, got.T.numpy(), mont=False) == [sum(ints) % spec.modulus]
+    assert ff.limbs_to_ints(spec, ff.fsum_plain(spec, a).T.numpy(), mont=False) == [
+        sum(ints) % spec.modulus]
+
+
+@pytest.mark.parametrize("fn", ["batch_inv", "fsum"])
+@pytest.mark.parametrize("case", ["dtype", "limb_rows", "not_contiguous", "device"])
+def test_batch_inv_and_fsum_refuse_bad_operands(fn, case):
+    spec = FP.FR_BLS12_381
+    good = ff.zeros(spec, 4, "cpu")
+    bad = {"dtype": good.long(), "limb_rows": good[:8].contiguous(),
+           "not_contiguous": good.T.contiguous().T,
+           # neither CPU nor CUDA: no plain fallback, the wrapper refuses
+           "device": torch.empty((spec.n_limbs, 4), dtype=torch.int32, device="meta")}[case]
+    with pytest.raises(ValueError):
+        getattr(ff, fn)(spec, bad)
 
 
 def test_mont_pow_refuses_bad_exponents():

@@ -255,18 +255,71 @@ def test_mont_pow_kernel_matches_plain(cuda, spec, m):
 
 @pytest.mark.gpu
 def test_batch_inv_inverts_the_root_in_one_launch(cuda):
-    from poly_commit_tpu_torch.core import msm_gpu
-
     spec = FP.FQ_BLS12_381
     rnd = random.Random(9)
     vals = [0] + [rnd.randrange(spec.modulus) for _ in range(999)]
     a = ff.from_ints(spec, vals, device=cuda)
-    pows, muls = ff.mont_pow.launches, ff.mont_mul.launches
-    inv = msm_gpu.batch_inv(spec, a)
+    pows, muls, trees = ff.mont_pow.launches, ff.mont_mul.launches, ff.batch_inv.launches
+    inv = ff.batch_inv(spec, a)
     torch.cuda.synchronize()
     assert ff.mont_pow.launches - pows == 1
-    assert ff.mont_mul.launches - muls == 3 * 10  # the tree of 1024 columns: up once, down twice
+    assert ff.mont_mul.launches - muls == 0
+    assert ff.batch_inv.launches - trees == 2  # 1000 columns: one block's tree, up and down
     assert ff.to_ints(spec, inv) == [pow(v, -1, spec.modulus) if v else 0 for v in vals]
+
+
+INV_SPECS = [FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FR_JUBJUB]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", INV_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 2, 3, 1000, 1024, 1025, 5000])
+def test_batch_inv_kernel_matches_plain(cuda, spec, m):
+    """The inversion tree against its plain version on canonical values,
+    lazy values (< 2p) and both encodings of zero; one and two levels of
+    blocks (2^10 columns a block)."""
+    a = _field(spec, m, 20 + m)
+    if m > 2:
+        a[:, 1] = 0
+        a[:, 2] = ff.consts(spec, "cpu", 0)[:, 0].to(torch.int32)  # p: zero, not reduced
+    for x in (ff.canonicalize(spec, a), a):
+        got = ff.batch_inv(spec, x.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(ff.canonicalize(spec, got.cpu()),
+                           ff.canonicalize(spec, ff.batch_inv_plain(spec, x)))
+
+
+@pytest.mark.gpu
+def test_batch_inv_kernel_three_levels_and_all_zero(cuda):
+    """2^20 + 1 columns take three levels of blocks; a batch of zeros
+    inverts to zeros."""
+    spec = FP.FR_BLS12_381
+    m = (1 << 20) + 1
+    a = _field(spec, m, 21).to(cuda)
+    before = ff.batch_inv.launches
+    inv = ff.batch_inv(spec, a)
+    torch.cuda.synchronize()
+    assert ff.batch_inv.launches - before == 6
+    one = ff.canonicalize(spec, ff.mont_mul(spec, a, inv))
+    nonzero = ~ff.is_zero(spec, a)
+    assert bool((one[:, nonzero] == ff.one_mont(spec, 1, cuda)).all())
+    zeros = ff.zeros(spec, 77, cuda)
+    assert not bool(ff.canonicalize(spec, ff.batch_inv(spec, zeros)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FR_JUBJUB, FP.FQ_BLS12_381], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [1, 2, 3, 255, 1023, 1024, 1025, 4099, 1 << 16])
+def test_fsum_kernel_matches_plain(cuda, spec, n):
+    """The field sum of 1 to 2^16 lazy columns against the halving loop:
+    one launch up to 2^10 columns, two past it."""
+    a = _field(spec, n, 30 + n)
+    before = ff.fsum.launches
+    got = ff.fsum(spec, a.to(cuda))
+    torch.cuda.synchronize()
+    assert ff.fsum.launches - before == (1 if n <= ff.SUM_BLOCK_COLUMNS else 2)
+    assert got.shape == (spec.n_limbs, 1)
+    assert torch.equal(ff.canonicalize(spec, got.cpu()), ff.canonicalize(spec, ff.fsum_plain(spec, a)))
 
 
 def _sort_keys(w, n, sentinel, cuda):
@@ -412,8 +465,9 @@ def test_ntt_round_trip_on_card(cuda, spec, log_n, rows):
     ev = ntt_lf.ntt(spec, a, rows=rows)
     back = ntt_lf.intt(spec, ev, rows=rows)
     torch.cuda.synchronize()
-    ran = [w.launches - b for w, b in zip(ntt_lf.WRAPPERS, before)]  # butterfly, fused, stages
-    assert (ran[0] > 0) == (rows << log_n < ntt_lf.FUSED_MIN_TOTAL)
+    ran = [w.launches - b for w, b in zip(ntt_lf.WRAPPERS, before)]  # butterfly, fused, stages, small
+    assert ran[0] == 0
+    assert ran[3] == (2 if rows << log_n < ntt_lf.FUSED_MIN_TOTAL else 0)  # one launch a transform
     assert (ran[2] > 0) == (log_n > 11)
     assert torch.equal(ff.canonicalize(spec, back), a)
     portable = NTT.ntt(spec, ff.to_field_last(a, (rows, 1 << log_n)))
@@ -476,3 +530,18 @@ def test_ntt_stages_kernel_matches_plain(cuda, spec, s0, r, rows, log_n):
     got = ntt_lf.stages(spec, a.to(cuda), _to(tws, cuda), s0)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ntt_lf.stages_plain(spec, a, tws, s0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP.FR_BN254, FP.FR_BLS12_381], ids=lambda s: s.name)
+@pytest.mark.parametrize("log_n", range(1, 10))
+def test_ntt_small_kernel_matches_plain(cuda, spec, log_n):
+    """K4a's one-launch transform against the chain of one-stage plain
+    calls, bit for bit, on one row and on as many rows as stay under 2^10
+    elements, inputs < 2p."""
+    tws = NTT.stage_twiddles(spec, log_n, False, "cpu")
+    for rows in sorted({1, (ntt_lf.FUSED_MIN_TOTAL - 1) >> log_n}):
+        a = _field(spec, rows << log_n, 50 + log_n)
+        got = ntt_lf.small(spec, a.to(cuda), _to(tws, cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ntt_lf.small_plain(spec, a, tws))

@@ -15,6 +15,7 @@ import copy
 import functools
 import types
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -133,3 +134,17 @@ def test_params_from_jax_round_trip():
     j = _both("single_poly_hiding")[0]
     assert _comms(t) == _comms(j) and _proofs(t) == _proofs(j)
     assert t.ok is True
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_inner_product_matches_jax(n):
+    """The port's inner product (one K1 product, then ``ff.fsum``) against
+    the JAX package's (a product and its halving loop of adds) at the
+    lengths the round trips above fold through."""
+    spec = tI.SPEC
+    rng = np.random.default_rng(90 + n)
+    a, b = ([int.from_bytes(rng.bytes(40), "little") % spec.modulus for _ in range(n)]
+            for _ in range(2))
+    got = tI._inner_product(tF.from_ints(spec, a, device="cpu"), tF.from_ints(spec, b, device="cpu"))
+    want = jF.to_ints(jI.SPEC, jI._inner_product(jF.from_ints(jI.SPEC, a), jF.from_ints(jI.SPEC, b)))
+    assert got == want == sum(x * y for x, y in zip(a, b)) % spec.modulus

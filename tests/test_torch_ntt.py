@@ -194,7 +194,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ntt_lf.ntt(FQ_BLS12_381, ff.zeros(FQ_BLS12_381, 8, "cpu"))
     with pytest.raises(ValueError):  # rows must split the array
         ntt_lf.ntt(spec, a, rows=3)
-    assert [w.launches for w in ntt_lf.WRAPPERS] == [0, 0, 0]  # the CPU launches nothing
+    assert [w.launches for w in ntt_lf.WRAPPERS] == [0, 0, 0, 0]  # the CPU launches nothing
 
 
 def _host_stages(spec, vals, tws, s0):
@@ -248,3 +248,53 @@ def test_stages_refuse_bad_stage_ranges(case):
         ntt_lf.stages(spec, a, stage_tws, s0)
     with pytest.raises(ValueError):
         ntt_lf.stages_plain(spec, a, stage_tws, s0)
+
+
+@pytest.mark.parametrize("field", list(SPECS))
+@pytest.mark.parametrize("log_n", range(1, 10))
+def test_small_plain_matches_host_stages(field, log_n):
+    """K4a's one-launch transform (on the CPU, its plain version) against
+    all log2 n radix-2 stages on host ints, on one row and on as many rows
+    as stay under 2^10 elements, inputs in [0, 2p)."""
+    spec, _ = SPECS[field]
+    tws = NTT.stage_twiddles(spec, log_n, False, "cpu")
+    host_tws = [ff.to_ints(spec, tw) for tw in tws]
+    for rows in sorted({1, (ntt_lf.FUSED_MIN_TOTAL - 1) >> log_n}):
+        a = _port(_raw(spec, _ints(spec, rows << log_n, seed=20 + log_n, bound=2 * spec.modulus)))
+        want = _host_stages(spec, ff.to_ints(spec, a), host_tws, 0)
+        assert ff.to_ints(spec, ntt_lf.small(spec, a, tws)) == want
+        assert ff.to_ints(spec, ntt_lf.small_plain(spec, a, tws)) == want
+
+
+@pytest.mark.parametrize("field", list(SPECS))
+def test_transform_below_1024_is_one_small_call(field, monkeypatch):
+    """A transform under FUSED_MIN_TOTAL elements takes K4a's one call for
+    all its stages (no one-stage butterflies) and equals the JAX package's
+    limbs-first NTT (the shape test_limbs_first_ntt_matches_jax compiles)."""
+    spec, _ = SPECS[field]
+    ints, want = _seeded(field, 4, 4)
+    calls = []
+    small = ntt_lf.small
+    monkeypatch.setattr(ntt_lf, "small", lambda *args: calls.append(args[1].shape) or small(*args))
+    monkeypatch.setattr(ntt_lf, "butterfly", lambda *args: pytest.fail("one-stage route taken"))
+    got = ntt_lf.ntt(spec, _lf(spec, ints), rows=4)
+    assert calls == [(spec.n_limbs, 4 << 4)]
+    assert ff.to_ints(spec, got) == want
+
+
+@pytest.mark.parametrize("case", ["no_stages", "too_many_stages", "too_many_elements",
+                                  "wrong_twiddles", "rows_do_not_split", "dtype", "device"])
+def test_small_refuses_what_the_kernel_does_not_take(case):
+    spec = FR_BN254
+    tws = NTT.stage_twiddles(spec, 10, False, "cpu")
+    a = ff.zeros(spec, 64, "cpu")
+    args = {"no_stages": (a, ()),
+            "too_many_stages": (ff.zeros(spec, 1024, "cpu"), tws),
+            "too_many_elements": (ff.zeros(spec, 2048, "cpu"), tws[:2]),
+            "wrong_twiddles": (a, tws[1:3]),
+            "rows_do_not_split": (ff.zeros(spec, 96, "cpu"), tws[:6]),
+            "dtype": (a.long(), tws[:6]),
+            # neither CPU nor CUDA: no plain fallback, the wrapper refuses
+            "device": (a.to("meta"), [t.to("meta") for t in tws[:6]])}[case]
+    with pytest.raises(ValueError):
+        ntt_lf.small(spec, *args)
