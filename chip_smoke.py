@@ -36,7 +36,10 @@ Phases, one JSON line each (times in ms):
      once more under torch.profiler (the device-busy share of its wall time,
      its five largest kernels by device time and host operations by host
      time); then the check stage's two MSMs and its pairing, timed apart on
-     the same inputs;
+     the same inputs; then a bounded run on the same SRS (main_path_bounded:
+     trim with the bound 2^19 - 1, one hiding polynomial of that degree
+     committed with its shifted commitment, batch_open, batch_check, the
+     value against host Horner, a tampered value rejected);
   5. ntt: a 2^22-point NTT and iNTT over BN254 Fr (K4b + K4c) and a 2^9 one
      (one K4a launch each), against the portable field-last route, the
      round trip and host Horner at four points;
@@ -52,7 +55,18 @@ Phases, one JSON line each (times in ms):
      batch_check, the value against host Horner, a tampered value rejected;
      then open again with its MSMs, their host window folds, the key
      folds and the inner products timed apart, and the first round's key
-     fold once under torch.profiler.
+     fold once under torch.profiler;
+  9. sonic: SonicKZG10 over BLS12-381 at degree 2^20 - 1, setup with the G2
+     powers neg_powers_of_h (2^20 + 2 G1 and 2^20 G2 fixed-base
+     multiplications; host powers, their conversion to limbs, G1 and G2
+     fixed-base timed apart) ->
+     trim with the bound 2^19 - 1 -> commit two hiding polynomials (degree
+     2^20 - 1 unbounded, 2^19 - 1 bounded) -> batch_open both at two points
+     -> batch_check; the four values against host Horner, a tampered value
+     rejected, three G2 powers against the host;
+  ark_golden: the three arkworks transcripts (MarlinKZG10, bounded and
+     hiding MarlinKZG10, SonicKZG10) with commit and open on the card, each
+     against its committed vector in tests/vectors/, one line a vector.
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -62,10 +76,12 @@ and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
 ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
-Phases 4-8 are the paths: each runs with every launch count set to 0 just
-before it and read just after; the kernel table sums them. Each path's
-line also splits K1's launches by columns (1, under 2^16, 2^16 and up),
-and a k1_launches line sums that split over the paths.
+Phases 4-9 and ark_golden are the paths: each runs with every launch count
+set to 0 just before it and read just after; the kernel table sums them.
+Each path's line also splits K1's launches by columns (1, under 2^16,
+2^16 and up), and a k1_launches line sums that split over phases 4-8
+(without the bounded run, phase 9 and ark_golden, so that it stays
+comparable with earlier runs).
 A k4c_launches line sums K4c's launches over phases 4-8 (at most 20 with
 several stages a launch). Then the kernel table, the nvidia-smi line, and
 {"ok": true, "device": ...}.
@@ -103,6 +119,15 @@ def nvidia_smi(fields):
     out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def horner(ints, x, p):
+    """The polynomial with coefficients ``ints`` (lowest first) at x, mod p,
+    on host ints."""
+    acc = 0
+    for c in reversed(ints):
+        acc = (acc * x + c) % p
+    return acc
 
 
 def time_ms(fn, reps):
@@ -202,10 +227,11 @@ def timed(into, name, fn):
 
 
 @contextlib.contextmanager
-def spans(targets):
+def spans(targets, key=None):
     """Within the block, each ``(module, attribute)`` function is wrapped so
     that its calls' host wall ms (between two synchronizes) and count add up
-    in the yielded dict under the attribute's name."""
+    in the yielded dict under the attribute's name, or under
+    ``key(attribute, args)`` where given."""
     import torch
 
     out = {}
@@ -217,8 +243,9 @@ def spans(targets):
             t0 = time.perf_counter()
             res = fn(*args, **kw)
             torch.cuda.synchronize()
-            ms, calls = out.get(attr, (0.0, 0))
-            out[attr] = (ms + (time.perf_counter() - t0) * 1e3, calls + 1)
+            name = attr if key is None else key(attr, args)
+            ms, calls = out.get(name, (0.0, 0))
+            out[name] = (ms + (time.perf_counter() - t0) * 1e3, calls + 1)
             return res
         return timed_call
 
@@ -265,7 +292,8 @@ class Smoke:
         self.gen.manual_seed(20261016)
         self.kernels = {}  # name -> JSON entry
         self.totals = {}  # name -> launches summed over the driven paths
-        self.size_totals = {}  # K1 wrapper -> launches by columns, summed over the paths
+        self.size_totals = {}  # K1 wrapper -> launches by columns, summed over phases 4-8
+        self.k4c_launches = 0  # K4c's launches summed over phases 4-8
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
         self.ff_wrappers = {**{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
                             "ff_pow": ff.mont_pow, "ff_batch_inv": ff.batch_inv, "ff_sum": ff.fsum}
@@ -311,15 +339,20 @@ class Smoke:
             w.launches_by_field.clear()
             w.launches_by_size.update(dict.fromkeys(w.launches_by_size, 0))
 
-    def read_counts(self):
+    def read_counts(self, in_sums=True):
         """(launches per wrapper, launches per K1 build, K1 launches per
-        wrapper by columns: 1, under 2^16, 2^16 and up), added to the totals."""
+        wrapper by columns: 1, under 2^16, 2^16 and up), added to the totals
+        (the kernel table); for phases 4-8 (``in_sums``) also to the sums
+        over those phases (the k1_launches and k4c_launches lines)."""
         launches = {name: w.launches for name, w in self.wrappers.items()}
         by_field = {f"{name}[{f}]": count for name, w in self.ff_wrappers.items()
                     for f, count in w.launches_by_field.items()}
         by_size = {name: dict(w.launches_by_size) for name, w in self.ff_wrappers.items()}
         for name, count in {**launches, **by_field}.items():
             self.totals[name] = self.totals.get(name, 0) + count
+        if not in_sums:
+            return launches, by_field, by_size
+        self.k4c_launches += launches["ntt_stages"]
         for name, sizes in by_size.items():
             into = self.size_totals.setdefault(name, dict.fromkeys(sizes, 0))
             for size, count in sizes.items():
@@ -1277,11 +1310,7 @@ class Smoke:
             [vk.vk.h, vk.vk.beta_h], prepared=prepared), split)
 
         # the opened value against host Horner on the coefficients
-        ints = F.to_ints(spec, coeffs)
-        acc = 0
-        for c in reversed(ints):
-            acc = (acc * z + c) % spec.modulus
-        value_ok = values[("p", z)] == acc
+        value_ok = values[("p", z)] == horner(F.to_ints(spec, coeffs), z, spec.modulus)
         # every K2a entry of the main path and K3 ran, every K1 build of the
         # main path ran, and no K1 build ran that phase 2 did not hold against
         # its plain version; the G1 MSMs scanned in madd_scan, not the loop
@@ -1295,7 +1324,61 @@ class Smoke:
               "all_kernels_launched": all_launched, "msms_scanned_in_one_launch": scanned,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
         emit({"phase": "main_path_profile", "stage": "commit", **profile})
+        self.main_pp = pp  # main_path_bounded trims it again
         return bool(ok) and rejected and value_ok and all_launched and scanned
+
+    def main_path_bounded(self):
+        """Phase 4's bounded run on phase 4's SRS (no second setup): trim
+        with the degree bound 2^(LOG_DEGREE-1) - 1, commit one hiding
+        polynomial of that degree (a shifted commitment), batch_open and
+        batch_check. Its launches stay out of the phase 4-8 sums."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+        from poly_commit_tpu_torch.pcs.marlin_pc import MarlinKZG10
+
+        torch = self.torch
+        PC = MarlinKZG10
+        spec = PC.spec
+        pp, self.main_pp = self.main_pp, None
+        degree = (1 << LOG_DEGREE) - 1
+        bound = (1 << (LOG_DEGREE - 1)) - 1
+        coeffs = self.rand_field(spec, bound + 1).T.contiguous()  # (bound+1, L) Montgomery
+        rng = HostRng(11)
+        stages = {}
+
+        def stage(name, fn):
+            return timed(stages, name, fn)
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ck, vk = stage("trim", lambda: PC.trim(pp, degree, 1, [bound]))
+        lp = LabeledPolynomial("p", coeffs, degree_bound=bound, hiding_bound=1)
+        comms, states = stage("commit", lambda: PC.commit(ck, [lp], rng))
+        z = rng.field_int(spec)
+        query_set = {("p", ("z", z))}
+        proofs, values = stage("open", lambda: PC.batch_open(
+            ck, [lp], comms, query_set, PoseidonSponge(spec), states, rng))
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        bad = {k: (v + 1) % spec.modulus for k, v in values.items()}
+        rejected = not stage("check_tampered", lambda: PC.batch_check(
+            vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, ff_by_field, ff_by_size = self.read_counts(in_sums=False)
+        value_ok = values[("p", z)] == horner(F.to_ints(spec, coeffs), z, spec.modulus)
+        shifted = comms[0].commitment.shifted_comm is not None
+        # the MSMs' kernels (scan, lane tree, digit sort, scalars out of
+        # Montgomery form); no setup runs here
+        needed = ["ec_madd_scan", "ec_add", "digit_sort", "ff_mont_mul[fr_bls12_381]"]
+        all_launched = self.all_launched(launches, ff_by_field, needed)
+        emit({"phase": "main_path_bounded", "scheme": "MarlinKZG10/BLS12-381", "degree": degree,
+              "degree_bound": bound, "hiding_bound": 1, "stage_ms": stages, "check": bool(ok),
+              "tampered_rejected": rejected, "value_matches_host": value_ok,
+              "shifted_commitment": shifted, "launches": launches,
+              "ff_launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
+        return bool(ok) and rejected and value_ok and shifted and all_launched
 
     def profile(self, fn, top=5):
         """fn() once under torch.profiler (CPU and CUDA activities): its host
@@ -1370,12 +1453,7 @@ class Smoke:
             coeffs = ff.to_ints(spec, a)
             w = NTT.domain(spec, n.bit_length() - 1)["omega"]
             idx = (0, 1, n // 2, n - 1)
-            want = []
-            for i in idx:
-                x, acc = pow(w, i, p), 0
-                for c in reversed(coeffs):
-                    acc = (acc * x + c) % p
-                want.append(acc)
+            want = [horner(coeffs, pow(w, i, p), p) for i in idx]
             got = ff.to_ints(spec, ev[:, list(idx)].contiguous())
             checks[f"{name}_horner"] = got == want
         n = 1 << NTT_LOG_N
@@ -1460,9 +1538,7 @@ class Smoke:
                 ints = [(a + z * (b - a)) % p for a, b in zip(ints[0::2], ints[1::2])]
             want = ints[0]
         else:
-            want = 0
-            for c in reversed(ints):
-                want = (want * point + c) % p
+            want = horner(ints, point, p)
         value_ok = values[key] == want
         emit({"phase": "ligero", "scheme": f"{PC.__name__}",
               **({"num_vars": LIGERO_NUM_VARS} if ml else {"degree": size - 1}),
@@ -1599,10 +1675,7 @@ class Smoke:
         challenge = random.Random(9).getrandbits(252)
         fold_profile = self.profile(lambda: ipa_pc.fold_key(k_l, k_r, challenge))
 
-        acc = 0
-        for c in reversed(F.to_ints(spec, coeffs)):
-            acc = (acc * z + c) % p
-        value_ok = values[("p", z)] == acc
+        value_ok = values[("p", z)] == horner(F.to_ints(spec, coeffs), z, p)
         needed = ["ec_ed_madd_packed", "ec_ed_add", "ec_ed_smul", "digit_sort",
                   "ff_mont_mul[fr_jubjub]", "ff_add[fr_jubjub]", "ff_sum[fr_jubjub]",
                   "ff_mont_mul[fr_bls12_381]", "ff_pow[fr_bls12_381]", "ff_batch_inv[fr_bls12_381]"]
@@ -1622,6 +1695,117 @@ class Smoke:
               "peak_mem_gb": peak_gb})
         emit({"phase": "ipa_fold_profile", "points": half, **fold_profile})
         return bool(ok) and rejected and value_ok and all_launched and one_smul_a_round and sums_ok
+
+    # -- phase 9 ----------------------------------------------------------
+    def sonic_path(self):
+        """SonicKZG10 over BLS12-381 at degree 2^LOG_DEGREE - 1: setup with
+        the G2 powers (its host powers, their conversion to limbs and its G1
+        and G2 fixed-base multiplications timed apart), trim with one degree bound, commit two
+        hiding polynomials (one bounded), batch_open both at two points,
+        batch_check; then the values against host Horner and three of the
+        G2 powers against the host."""
+        from poly_commit_tpu_torch.core import curve as C
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core import hostec
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import kzg10
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+        from poly_commit_tpu_torch.pcs.sonic_pc import SonicKZG10
+
+        torch = self.torch
+        PC = SonicKZG10
+        spec, r = PC.spec, PC.spec.modulus
+        degree = (1 << LOG_DEGREE) - 1
+        bound = (1 << (LOG_DEGREE - 1)) - 1
+        coeffs = [self.rand_field(spec, n + 1).T.contiguous() for n in (degree, bound)]
+        seed = 9
+        rng = HostRng(seed)
+        stages = {}
+
+        def stage(name, fn):
+            return timed(stages, name, fn)
+
+        def part(attr, args):  # host_powers, scalars_from_ints, g1_fixed_base, g2_fixed_base
+            return f"{args[0].name[-2:]}_fixed_base" if attr == "fixed_base_mul" else attr
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with spans([(kzg10, "host_powers"), (kzg10.M, "scalars_from_ints"),
+                    (kzg10.M, "fixed_base_mul")], key=part) as parts:
+            pp = stage("setup", lambda: PC.setup(degree, rng=rng, device=self.dev))
+        setup_split = {f"{k}_ms": ms for k, (ms, _) in parts.items()}
+        setup_split["rest_ms"] = stages["setup"] - sum(setup_split.values())
+        ck, vk = stage("trim", lambda: PC.trim(pp, degree, 1, [bound]))
+        polys = [LabeledPolynomial("p0", coeffs[0], hiding_bound=1),
+                 LabeledPolynomial("p1", coeffs[1], degree_bound=bound, hiding_bound=1)]
+        comms, states = stage("commit", lambda: PC.commit(ck, polys, rng))
+        zs = [rng.field_int(spec) for _ in range(2)]
+        query_set = {(lp.label, (f"z{i}", z)) for lp in polys for i, z in enumerate(zs)}
+        proofs, values = stage("open", lambda: PC.batch_open(
+            ck, polys, comms, query_set, PoseidonSponge(spec), states, rng))
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        first = sorted(values)[0]
+        bad = {**values, first: (values[first] + 1) % r}
+        rejected = not stage("check_tampered", lambda: PC.batch_check(
+            vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field, ff_by_size = self.read_counts(in_sums=False)
+
+        # the four values against host Horner on the coefficients
+        values_ok = True
+        for lp, c in zip(polys, coeffs):
+            ints = F.to_ints(spec, c)
+            values_ok = values_ok and all(values[(lp.label, z)] == horner(ints, z, r) for z in zs)
+        # neg_powers_of_h[i] = beta^-i h: beta and h's scalar are the
+        # seed's first and fourth draws
+        g2 = C.BLS12_381_G2
+        hg2 = hostec.host_group(g2)
+        draws = HostRng(seed).field_ints(spec, 4)
+        h = hg2.mul_fast(g2.generator_host(), draws[3])
+        at = [1, (1 << LOG_DEGREE) - (1 << (LOG_DEGREE - 1)), (1 << LOG_DEGREE) - 1]
+        want = [hostec.host_to_triple(hg2.mul_fast(h, pow(draws[0], -i, r)), fq2=True) for i in at]
+        neg_ok = (kzg10.affine_at(g2, pp.neg_powers_of_h, at) == want
+                  and pp.h == hostec.host_to_triple(h, fq2=True))
+        needed = ["ec_g2_madd", "ec_g2_madd_distinct", "ec_g2_double"] + list(self.MAIN_PATH_EC)
+        needed += ["digit_sort", "ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]",
+                   "ff_batch_inv[fq_bls12_381]", "ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        emit({"phase": "sonic", "scheme": "SonicKZG10/BLS12-381", "degree": degree,
+              "degree_bound": bound, "hiding_bound": 1, "points": 2, "stage_ms": stages,
+              "setup_split_ms": setup_split, "check": bool(ok), "tampered_rejected": rejected,
+              "values_match_host": values_ok, "neg_powers_of_h_match_host": neg_ok,
+              "launches": launches, "ff_launches_by_field": by_field,
+              "ff_launches_by_size": ff_by_size, "all_kernels_launched": all_launched,
+              "peak_mem_gb": peak_gb})
+        return bool(ok) and rejected and values_ok and neg_ok and all_launched
+
+    # -- ark_golden -------------------------------------------------------
+    def ark_golden(self):
+        """The port's three arkworks transcripts with commit and open on the
+        card, each against its committed vector in tests/vectors/."""
+        from poly_commit_tpu_torch.pcs import ark_interop as AI
+
+        runs = {"marlin_ark_golden": lambda v: AI.marlin_ark_golden(v["degree"], device=self.dev),
+                "marlin_bounded_ark_golden": lambda v: AI.marlin_ark_golden_bounded(
+                    v["degree"], v["degree_bound"], v["hiding_bound"], device=self.dev),
+                "sonic_ark_golden": lambda v: AI.sonic_ark_golden(
+                    v["degree"], v["degree_bound"], v["hiding_bound"], device=self.dev)}
+        all_equal = True
+        for name, run in runs.items():
+            want = json.loads((Path(__file__).parent / "tests" / "vectors" / f"{name}.json").read_text())
+            self.reset_counts()
+            ms = {}
+            got = timed(ms, "ms", lambda: run(want))
+            launches, _, _ = self.read_counts(in_sums=False)
+            differ = [k for k in want if got.get(k) != want[k]] + [k for k in got if k not in want]
+            equal = got == want and want["check"] is True
+            all_equal = all_equal and equal and launches["ec_madd_scan"] > 0
+            emit({"phase": "ark_golden", "vector": name, "equal": equal,
+                  "first_differing_key": differ[0] if differ else None, "ms": ms["ms"],
+                  "msm_scan_launches": launches["ec_madd_scan"],
+                  "digit_sort_launches": launches["digit_sort"]})
+        return all_equal
 
 
 def main() -> int:
@@ -1644,12 +1828,14 @@ def main() -> int:
                    "ed": smoke.check_ed(), "sort": smoke.check_sort(),
                    "ntt_kernels": smoke.check_ntt_kernels(), "msm": smoke.check_msm(),
                    "msm_g2_jubjub": smoke.check_side_msms(),
-                   "main_path": smoke.main_path(), "ntt": smoke.ntt_path(),
+                   "main_path": smoke.main_path(), "main_path_bounded": smoke.main_path_bounded(),
+                   "ntt": smoke.ntt_path(),
                    "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni"),
-                   "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path()}
+                   "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path(),
+                   "sonic": smoke.sonic_path(), "ark_golden": smoke.ark_golden()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
-        k4c = smoke.totals.get("ntt_stages", 0)
+        k4c = smoke.k4c_launches
         results["k4c_passes"] = 0 < k4c <= smoke.MAX_K4C_LAUNCHES
         emit({"phase": "k4c_launches", "over": "phases 4-8", "launches": k4c,
               "at_most": smoke.MAX_K4C_LAUNCHES})

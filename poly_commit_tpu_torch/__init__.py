@@ -13,6 +13,13 @@ engines, errors) are its own copies.
 
 Ported so far (see ROADMAP.md):
   pcs.kzg10, pcs.marlin_pc  — MarlinKZG10 over BLS12-381 and BLS12-377
+  pcs.sonic_pc              — SonicKZG10 over BLS12-381 and BLS12-377 (its
+                              G2 powers on the device)
+  pcs.ark_interop           — the arkworks golden transcripts (MarlinKZG10,
+                              bounded and hiding, SonicKZG10), with
+                              core.ark_compat (arkworks' test RNG, sampling
+                              and Poseidon test sponge) and the arkworks and
+                              zcash point codecs of core.serialize
   pcs.linear_codes          — Ligero, univariate and multilinear, over the
                               BLS12-381 and BN254 scalar fields
   pcs.multilinear_pc        — MultilinearPC over BLS12-381 (G1 and G2)

@@ -382,6 +382,33 @@ def host_point_to_device(group, P, device):
     return group.from_affine(conv(group.spec, P[0], device), conv(group.spec, P[1], device))
 
 
+def device_affine_to_host(group, points) -> list:
+    """Device affine (x, y, inf), batch (N,) or () -> list of host points.
+
+    Weierstrass infinity -> None; the Edwards identity -> (0, 1); G2
+    coordinates become (c0, c1) int pairs (the _Fp2 convention)."""
+    from . import ff
+
+    x, y, inf = points
+    L = group.spec.n_limbs
+    xs, ys = (ff.limbs_to_ints(group.spec, a.reshape(-1, L).cpu().numpy()) for a in (x, y))
+    if _is_g2(group):
+        xs, ys = list(zip(xs[0::2], xs[1::2])), list(zip(ys[0::2], ys[1::2]))
+    ident = (0, 1) if _is_edwards(group) else None
+    return [ident if i else (a, b) for a, b, i in zip(xs, ys, inf.reshape(-1).cpu().tolist())]
+
+
+def host_points_to_device_affine(group, pts, device=None):
+    """List of host affine points -> device affine (x, y, inf), batch (N,),
+    in curve.affine_from_ints's layout."""
+    from .curve import affine_from_ints
+
+    fq2, ed = _is_g2(group), _is_edwards(group)
+    triples = [host_to_triple(None, fq2) if P is None or (ed and tuple(P) == (0, 1))
+               else (P[0], P[1], False) for P in pts]
+    return affine_from_ints(group, triples, device)
+
+
 def triple_to_host(t):
     """(x, y, inf) -> host point (None for infinity)."""
     x, y, inf = t

@@ -5,8 +5,9 @@
 the JAX side; this module imports nothing of that package) and returns the
 port's ``UniversalParams``. Both packages keep G1 coordinates as 16-bit
 Montgomery limbs with the same R, so the G1 powers carry over bit for bit;
-the G2 points h and beta_h become host int triples. With it, both packages
-commit against the very same SRS.
+the G2 points h and beta_h become host int triples, and SonicKZG10's G2
+powers keep their limbs. With it, both packages commit against the very
+same SRS.
 
 ``ligero_params_from_jax`` and ``lincode_state_from_jax`` carry Ligero
 parameters and a commitment's prover state across (read by attribute), so
@@ -30,10 +31,14 @@ from .linear_codes.engine import LinCodePCCommitmentState
 from .linear_codes.ligero import LigeroPCParams
 
 
-def _g1(t, device):
+def _affine(t, device):
+    """A device affine batch (x, y, inf) from any arrays numpy reads
+    (uint32 Montgomery limbs, G2 as (N, 2, L)) -> int32 tensors."""
     x, y, inf = (np.asarray(a) for a in t)
+
     def limbs(a):
         return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(device)
+
     return limbs(x), limbs(y), torch.from_numpy(inf.astype(bool)).to(device)
 
 
@@ -47,14 +52,18 @@ def _g2(t, ctx: CurveCtx):
 
 def params_from_jax(d: dict, ctx: CurveCtx = CTX_BLS12_381, device=None) -> kzg10.UniversalParams:
     """d: {"powers_of_g", "powers_of_gamma_g": (x (N, L), y (N, L), inf (N,)),
-    "h", "beta_h": (x (2, L), y (2, L), inf ()), "max_degree": int}, the
-    arrays in the JAX package's layout (uint32 Montgomery limbs)."""
+    "h", "beta_h": (x (2, L), y (2, L), inf ()), "max_degree": int}, and
+    optionally SonicKZG10's "neg_powers_of_h": (x (N, 2, L), y (N, 2, L),
+    inf (N,)), the arrays in the JAX package's layout (uint32 Montgomery
+    limbs)."""
     dev = D.resolve(device)
+    neg = d.get("neg_powers_of_h")
     return kzg10.UniversalParams(
-        powers_of_g=_g1(d["powers_of_g"], dev),
-        powers_of_gamma_g=_g1(d["powers_of_gamma_g"], dev),
+        powers_of_g=_affine(d["powers_of_g"], dev),
+        powers_of_gamma_g=_affine(d["powers_of_gamma_g"], dev),
         h=_g2(d["h"], ctx),
         beta_h=_g2(d["beta_h"], ctx),
+        neg_powers_of_h=None if neg is None else _affine(neg, dev),
         max_degree=int(d["max_degree"]),
     )
 
@@ -83,17 +92,6 @@ def lincode_state_from_jax(st, device=None) -> LinCodePCCommitmentState:
 
     return LinCodePCCommitmentState(mat=limbs(st.mat), ext_mat=limbs(st.ext_mat),
                                     leaves=[bytes(leaf) for leaf in st.leaves])
-
-
-def _affine(t, device):
-    """A device affine batch (x, y, inf) from any arrays numpy reads
-    (uint32 Montgomery limbs, G2 as (N, 2, L)) -> int32 tensors."""
-    x, y, inf = (np.asarray(a) for a in t)
-
-    def limbs(a):
-        return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(device)
-
-    return limbs(x), limbs(y), torch.from_numpy(inf.astype(bool)).to(device)
 
 
 def _host(t):

@@ -11,7 +11,9 @@ kzg10/mod.rs):
 The verifier key's G2 points h and beta_h are host int triples (two
 points: moving them to the device G2 group is still to do); single-point
 multiplications in setup and the verifier's O(1) algebra run on host ints.
-Every batched operation runs on the device of the key's tensors.
+Every batched operation runs on the device of the key's tensors, among
+them SonicKZG10's G2 powers neg_powers_of_h (setup's fixed-base
+multiplication on K2c).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class UniversalParams:
     powers_of_gamma_g: tuple  # batch (D+2,)
     h: tuple  # host G2 triple ((x0, x1), (y0, y1), inf)
     beta_h: tuple
+    neg_powers_of_h: Optional[tuple] = None  # device G2 affine, batch (D+1,), for Sonic
     max_degree: int = 0
 
 
@@ -94,10 +97,21 @@ def _srs_msm(coeffs_mont: torch.Tensor, key, ctx: CurveCtx = CTX_BLS12_381) -> t
     return M.msm_mont(ctx.g1, coeffs_mont, key, assume_distinct=True)
 
 
-def setup(max_degree: int, rng: HostRng | None = None, ctx: CurveCtx = CTX_BLS12_381,
-          device=None) -> UniversalParams:
+def host_powers(x: int, n: int, modulus: int) -> list:
+    """[1, x, ..., x^(n-1)] mod ``modulus`` on host ints (serial, like
+    kzg10/mod.rs:68-73)."""
+    out = [1] * n
+    for i in range(1, n):
+        out[i] = out[i - 1] * x % modulus
+    return out
+
+
+def setup(max_degree: int, produce_g2_powers: bool = False, rng: HostRng | None = None,
+          ctx: CurveCtx = CTX_BLS12_381, device=None) -> UniversalParams:
     """Sample beta, g, gamma_g, h and build the power tables
-    (kzg10/mod.rs:53-124)."""
+    (kzg10/mod.rs:53-124); with ``produce_g2_powers`` also
+    neg_powers_of_h[i] = beta^-i h for i <= max_degree (mod.rs:90-104),
+    which draws nothing more from ``rng``."""
     g1, spec = ctx.g1, ctx.spec
     dev = D.resolve(device)
     if max_degree < 1:
@@ -112,22 +126,43 @@ def setup(max_degree: int, rng: HostRng | None = None, ctx: CurveCtx = CTX_BLS12
     hg2 = ctx.hg2
     h = hg2.mul_fast(ctx.g2.generator_host(), h_k)
 
-    # powers of beta as plain scalars (host ints; serial like mod.rs:68-73)
-    pows = [1] * (max_degree + 2)
-    for i in range(1, max_degree + 2):
-        pows[i] = pows[i - 1] * beta % spec.modulus
+    pows = host_powers(beta, max_degree + 2, spec.modulus)
     sc_g = M.scalars_from_ints(spec, pows[: max_degree + 1], dev)
     sc_gg = M.scalars_from_ints(spec, [x * gamma % spec.modulus for x in pows], dev)
     powers_of_g = g1.to_affine(M.fixed_base_mul(g1, g, sc_g))
     powers_of_gamma_g = g1.to_affine(M.fixed_base_mul(g1, g, sc_gg))
     beta_h = hg2.mul_fast(h, beta)
+    neg_powers_of_h = None
+    if produce_g2_powers:
+        npows = host_powers(pow(beta, -1, spec.modulus), max_degree + 1, spec.modulus)
+        h_dev = hostec.host_point_to_device(ctx.g2, h, dev)
+        neg_powers_of_h = ctx.g2.to_affine(
+            M.fixed_base_mul(ctx.g2, h_dev, M.scalars_from_ints(spec, npows, dev)))
     return UniversalParams(
         powers_of_g=powers_of_g,
         powers_of_gamma_g=powers_of_gamma_g,
         h=hostec.host_to_triple(h, fq2=True),
         beta_h=hostec.host_to_triple(beta_h, fq2=True),
+        neg_powers_of_h=neg_powers_of_h,
         max_degree=max_degree,
     )
+
+
+def trim_powers(pp: UniversalParams, supported_degree: int) -> Powers:
+    """Plain slice of the SRS (the test-only helper at kzg10/mod.rs:488-517)."""
+    return Powers(
+        powers_of_g=tuple(a[: supported_degree + 1] for a in pp.powers_of_g),
+        powers_of_gamma_g=tuple(a[: supported_degree + 2] for a in pp.powers_of_gamma_g),
+    )
+
+
+def affine_at(group, points, indices) -> list:
+    """Host int triples of a device affine batch's points at ``indices``,
+    gathered on the device first, so only those points reach the host
+    (trim's shift powers out of a full-size SRS)."""
+    idx = torch.tensor(list(indices), dtype=torch.long, device=points[0].device)
+    pts = hostec.device_affine_to_host(group, tuple(a[idx] for a in points))
+    return [hostec.host_to_triple(P, fq2=hostec._is_g2(group)) for P in pts]
 
 
 def vk_from_params(pp: UniversalParams) -> VerifierKey:

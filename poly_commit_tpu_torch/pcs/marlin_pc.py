@@ -155,16 +155,8 @@ class MarlinKZG10(PolynomialCommitment):
             bounds = sorted(set(enforced_degree_bounds))
             lowest = max_degree - bounds[-1]
             shifted_powers = take(pp.powers_of_g, slice(lowest, None))
-            from ..core.serialize import device_points_to_ints
-
-            g1 = cls.CTX.g1
-            all_pts = device_points_to_ints(
-                g1,
-                g1.from_affine(
-                    pp.powers_of_g[0], pp.powers_of_g[1], pp.powers_of_g[2]
-                ),
-            )
-            bounds_and_powers = [(b, all_pts[max_degree - b]) for b in bounds]
+            shift_pts = kzg10.affine_at(cls.CTX.g1, pp.powers_of_g, [max_degree - b for b in bounds])
+            bounds_and_powers = list(zip(bounds, shift_pts))
             enforced_degree_bounds = bounds
 
         ck = CommitterKey(

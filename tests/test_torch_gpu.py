@@ -545,3 +545,77 @@ def test_ntt_small_kernel_matches_plain(cuda, spec, log_n):
         got = ntt_lf.small(spec, a.to(cuda), _to(tws, cuda))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ntt_lf.small_plain(spec, a, tws))
+
+
+GOLDENS = ["marlin_ark_golden", "marlin_bounded_ark_golden", "sonic_ark_golden"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GOLDENS)
+def test_golden_vectors_replay_on_card(cuda, name):
+    """The committed arkworks transcripts, replayed with commit and open on
+    the card (MSMs of 11 points through K1, K2a and K3)."""
+    import json
+    import os
+
+    from poly_commit_tpu_torch.pcs import ark_interop as AI
+
+    with open(os.path.join(os.path.dirname(__file__), "vectors", f"{name}.json")) as fh:
+        want = json.load(fh)
+    bounded = {} if name == "marlin_ark_golden" else dict(bound=want["degree_bound"],
+                                                          hiding=want["hiding_bound"])
+    fn = {"marlin_ark_golden": AI.marlin_ark_golden,
+          "marlin_bounded_ark_golden": AI.marlin_ark_golden_bounded,
+          "sonic_ark_golden": AI.sonic_ark_golden}[name]
+    before = ec_lf.madd_scan.launches
+    assert fn(want["degree"], device=cuda, **bounded) == want
+    assert ec_lf.madd_scan.launches > before
+
+
+def _sonic_round_trip(device):
+    """SonicKZG10 at max_degree 16: bounds [4, 6] with hiding, two points."""
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.sonic_pc import SonicKZG10 as PC
+
+    rng = HostRng(7)
+    pp = PC.setup(16, rng=rng, device=device)
+    ck, vk = PC.trim(pp, 8, 2, [4, 6])
+    polys = [LabeledPolynomial(f"p{b}", F.from_ints(PC.spec, rng.field_ints(PC.spec, b + 1),
+                                                    device=device), degree_bound=b, hiding_bound=2)
+             for b in (4, 6)]
+    comms, states = PC.commit(ck, polys, rng)
+    points = [rng.field_int(PC.spec) for _ in range(2)]
+    query_set = {(lp.label, (f"z{i}", z)) for lp in polys for i, z in enumerate(points)}
+    proofs, values = PC.batch_open(ck, polys, comms, query_set, PoseidonSponge(PC.spec), states, rng)
+    ok = PC.batch_check(vk, comms, query_set, values, proofs, PoseidonSponge(PC.spec))
+    return ([c.commitment.point for c in comms], [(p.w, p.random_v) for p in proofs], values, ok)
+
+
+@pytest.mark.gpu
+def test_sonic_round_trip_on_card_matches_cpu(cuda):
+    got, want = _sonic_round_trip(cuda), _sonic_round_trip("cpu")
+    assert got == want and got[3] is True
+
+
+@pytest.mark.gpu
+def test_sonic_neg_powers_of_h_on_card_match_host(cuda):
+    """setup's 2^10 G2 powers beta^-i h (fixed-base on K2c) against the host
+    chain; beta and h's scalar are the rng's first and fourth draws."""
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng
+    from poly_commit_tpu_torch.pcs.sonic_pc import SonicKZG10 as PC
+
+    n = 1 << 10
+    before = ec_lf.g2_madd.launches
+    pp = PC.setup(n - 1, rng=HostRng(3), device=cuda)
+    assert ec_lf.g2_madd.launches > before
+    draws = HostRng(3).field_ints(PC.spec, 4)
+    g2 = curve.BLS12_381_G2
+    hg = hostec.host_group(g2)
+    h = hg.mul_fast(g2.generator_host(), draws[3])
+    binv = pow(draws[0], -1, PC.spec.modulus)
+    want, acc = [], h
+    for _ in range(n):
+        want.append(acc)
+        acc = hg.mul_fast(acc, binv)
+    assert hostec.device_affine_to_host(g2, pp.neg_powers_of_h) == want

@@ -54,7 +54,7 @@ def test_poly_ops_match_jax(n):
 def test_kzg_checks_reject_tampering():
     """kzg10.check (one opening, host pairing) accepts the honest proof and
     rejects a changed value or point."""
-    pp, _ = _setup("port", "bls12_381", 7)
+    pp, _ = _setup(PORT, "bls12_381", 7)
     ck, vk = tM.MarlinKZG10.trim(pp, 8, 1, None)
     rng = tDS.HostRng(3)
     coeffs = tF.from_ints(tM.MarlinKZG10.spec, rng.field_ints(tM.MarlinKZG10.spec, 9), device="cpu")
