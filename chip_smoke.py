@@ -9,19 +9,22 @@ Phases, one JSON line each (times in ms):
      (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the same inputs on
      the card, exactly (K1 ff mul/add/sub on the BLS12-381 base and scalar
-     fields, the BN254 scalar field and the BLS12-377 base field at 2^20
-     columns, and at 2^10 and 1 (also from a CUDA graph, without the
+     fields, the BN254 scalar and base fields and the BLS12-377 base field
+     at 2^20 columns, and at 2^10 and 1 (also from a CUDA graph, without the
      wrapper's host work); K1's power, the Fermat chain of every batched
-     inversion, on the BLS12-381 base and scalar fields at 1 and 2^12
-     columns; K1's batched inversion at 2^20 columns of Fq-381 and 2^15
-     of Fr-381 (its launches: the tree's levels and one power) and its
-     field sum at 2^16 of Fr-JubJub, each beside the loop of K1 launches it
-     replaced; K2a the six G1 formulas and madd_scan, the MSM's
+     inversion, on the BLS12-381 base and scalar fields and the BN254 base
+     field at 1 and 2^12 columns; K1's batched inversion at 2^20 columns of
+     Fq-381, 2^15 of Fr-381 and 2^11 of Fq-254 (its launches: the tree's
+     levels and one power) and its field sum at 2^16 of Fr-JubJub, each
+     beside the loop of K1 launches it replaced; K2a the six G1 formulas
+     on the BLS12-381 and BN254 base fields and madd_scan, the MSM's
      within-lane scan in one launch, bit for bit at the 2^20 MSM's 256
-     steps x 2^16 lanes (the complete madd's edge lanes at 16 steps) and
-     timed beside the loop of launches it replaced; K3,
+     steps x 2^16 lanes and at a chunk of Hyrax's batched MSM, 128 steps x
+     2^18 lanes over 2^11 BN254 points (the complete madd's edge lanes at
+     16 steps), timed beside the loop of launches it replaced; K3,
      the stable digit sort, index for index at the 2^20 MSM's (16, 2^20)
-     keys and the c = 8 MSMs' (32, 2^15); K4a/K4b/K4c the NTT stages on the
+     keys, the c = 8 MSMs' (32, 2^15) and a chunk of Hyrax's batched MSM
+     (2^14, 2^11); K4a/K4b/K4c the NTT stages on the
      BN254 and BLS12-381 scalar fields, K4a's 2^9-point transform and K4c
      four stages in one launch each beside the chain of one-stage
      launches), with the kernel's, the plain
@@ -55,7 +58,9 @@ Phases, one JSON line each (times in ms):
      batch_check, the value against host Horner, a tampered value rejected;
      then open again with its MSMs, their host window folds, the key
      folds and the inner products timed apart, and the first round's key
-     fold once under torch.profiler;
+     fold once under torch.profiler; then one equation on the same SRS
+     (ipa_equation: a p + b p2 + c, open_combinations ->
+     check_combinations, a tampered value rejected);
   9. sonic: SonicKZG10 over BLS12-381 at degree 2^20 - 1, setup with the G2
      powers neg_powers_of_h (2^20 + 2 G1 and 2^20 G2 fixed-base
      multiplications; host powers, their conversion to limbs, G1 and G2
@@ -66,7 +71,20 @@ Phases, one JSON line each (times in ms):
      rejected, three G2 powers against the host;
   ark_golden: the three arkworks transcripts (MarlinKZG10, bounded and
      hiding MarlinKZG10, SonicKZG10) with commit and open on the card, each
-     against its committed vector in tests/vectors/, one line a vector.
+     against its committed vector in tests/vectors/, one line a vector;
+ 10. brakedown: MultilinearBrakedown over BN254 Fr at 22 variables, setup
+     -> trim -> commit -> batch_open -> batch_check, the value against a
+     host evaluation, a tampered value rejected, the launches and peak
+     memory; then commit's parts timed apart (encode, column bytes,
+     Blake2s, Merkle tree);
+ 11. hyrax: Hyrax over BN254 at 22 variables (2048 rows of 2048), one
+     hiding polynomial, setup -> trim -> commit -> open -> check, the value
+     against the host MLE fold, a tampered proof rejected (z[0] + 1, and
+     com_eval), the host window folds in commit counted (0: the batched
+     MSM folds on the card) and commit's launches; then commit again with
+     its batched MSM's parts timed apart (sort, scan, trees and gathers,
+     device fold, fixed-base, normalisations), once under torch.profiler,
+     and msm_rows on one chunk of rows at 16 to 256 lanes a window.
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -76,12 +94,13 @@ and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
 ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
-Phases 4-9 and ark_golden are the paths: each runs with every launch count
+Phases 4-11 and ark_golden are the paths: each runs with every launch count
 set to 0 just before it and read just after; the kernel table sums them.
 Each path's line also splits K1's launches by columns (1, under 2^16,
 2^16 and up), and a k1_launches line sums that split over phases 4-8
-(without the bounded run, phase 9 and ark_golden, so that it stays
-comparable with earlier runs).
+(without the bounded run, phase 8's equation, phases 9-11 and ark_golden,
+so that it stays comparable with earlier runs). K1 and K2a count their
+launches by field: their kernel-table entries are per field.
 A k4c_launches line sums K4c's launches over phases 4-8 (at most 20 with
 several stages a launch). Then the kernel table, the nvidia-smi line, and
 {"ok": true, "device": ...}.
@@ -107,6 +126,8 @@ NTT_LOG_N = 22
 MLPC_NUM_VARS = 20  # MultilinearPC at 2^20 evaluations, the main path's scale
 IPA_LOG_DEGREE = 16  # IPA-PC at degree 2^16 - 1: host hash-to-curve bounds setup
 SIDE_MSM_LOG_N = 10  # the G2 and JubJub MSMs of phase 3 (host oracle cost)
+BRAKEDOWN_NUM_VARS = 22  # the top of the reference's Brakedown bench
+HYRAX_NUM_VARS = 22  # the top of the reference's Hyrax bench: 2048 rows of 2048
 IMAD_PER_PRODUCT = 4 * 8 * 8 + 8  # CIOS on 8 32-bit words
 IMAD_PER_FQ_PRODUCT = 4 * 12 * 12 + 12  # CIOS on 12 32-bit words
 
@@ -231,13 +252,17 @@ def spans(targets, key=None):
     """Within the block, each ``(module, attribute)`` function is wrapped so
     that its calls' host wall ms (between two synchronizes) and count add up
     in the yielded dict under the attribute's name, or under
-    ``key(attribute, args)`` where given."""
+    ``key(attribute, args)`` where given. A wrapped kernel wrapper keeps
+    its count attributes, so it can still count its launches."""
+    import functools
+
     import torch
 
     out = {}
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr in targets]
 
     def wrap(attr, fn):
+        @functools.wraps(fn)
         def timed_call(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -297,6 +322,10 @@ class Smoke:
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
         self.ff_wrappers = {**{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
                             "ff_pow": ff.mont_pow, "ff_batch_inv": ff.batch_inv, "ff_sum": ff.fsum}
+        # K2a counts its launches by field too: BLS12-381 on phases 4-9, BN254
+        # on phase 11
+        self.k2a_wrappers = {f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS}
+        self.ec_wrappers = ec_lf.WRAPPERS + ec_lf.G2_WRAPPERS + ec_lf.ED_WRAPPERS
         self.wrappers = {
             **self.ff_wrappers,
             **{f"ec_{w.__name__}": w for w in ec_lf.WRAPPERS + ec_lf.G2_WRAPPERS + ec_lf.ED_WRAPPERS},
@@ -335,17 +364,20 @@ class Smoke:
     def reset_counts(self):
         for w in self.wrappers.values():
             w.launches = 0
+        for w in self.ec_wrappers:
+            w.launches_by_field.clear()
         for w in self.ff_wrappers.values():
             w.launches_by_field.clear()
             w.launches_by_size.update(dict.fromkeys(w.launches_by_size, 0))
 
     def read_counts(self, in_sums=True):
-        """(launches per wrapper, launches per K1 build, K1 launches per
-        wrapper by columns: 1, under 2^16, 2^16 and up), added to the totals
+        """(launches per wrapper, launches per K1 and K2a build, K1 launches
+        per wrapper by columns: 1, under 2^16, 2^16 and up), added to the totals
         (the kernel table); for phases 4-8 (``in_sums``) also to the sums
         over those phases (the k1_launches and k4c_launches lines)."""
         launches = {name: w.launches for name, w in self.wrappers.items()}
-        by_field = {f"{name}[{f}]": count for name, w in self.ff_wrappers.items()
+        by_field = {f"{name}[{f}]": count
+                    for name, w in {**self.ff_wrappers, **self.k2a_wrappers}.items()
                     for f, count in w.launches_by_field.items()}
         by_size = {name: dict(w.launches_by_size) for name, w in self.ff_wrappers.items()}
         for name, count in {**launches, **by_field}.items():
@@ -360,8 +392,8 @@ class Smoke:
         return launches, by_field, by_size
 
     def all_launched(self, launches, by_field, needed):
-        """Every kernel in ``needed`` ran in this path, and every K1 build
-        that ran has a phase-2 entry (held against its plain version)."""
+        """Every kernel in ``needed`` ran in this path, and every K1 and K2a
+        build that ran has a phase-2 entry (held against its plain version)."""
         counts = {**launches, **by_field}
         return all(counts.get(k, 0) > 0 for k in needed) and all(k in self.kernels for k in by_field)
 
@@ -460,9 +492,11 @@ class Smoke:
         ok = True
         # the main path's shape: 2^20 lanes of the scalar field (the prover's
         # polynomial work) and of the base field (the SRS normalisation);
-        # BN254's scalar field is Ligero's, JubJub's IPA-PC's. BLS12-377's
+        # BN254's scalar field is Ligero's and Brakedown's, its base field
+        # Hyrax's (normalisation, negation), JubJub's IPA-PC's. BLS12-377's
         # base field runs the same 12-word build as BLS12-381's.
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FR_JUBJUB, FP.FQ_BLS12_377):
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FR_JUBJUB, FP.FQ_BN254,
+                     FP.FQ_BLS12_377):
             n = 1 << 20
             a, b = self.rand_field(spec, n), self.rand_field(spec, n)
             a = ff.plain("add", spec, a, b)  # values up to 2p: the lazy range
@@ -534,8 +568,9 @@ class Smoke:
 
     def check_ff_pow(self):
         """K1's power kernel against its plain version, limb for limb, on
-        the Fermat exponent p - 2 of the two fields whose inversions the
-        paths run (Fq-381: G1 and Fq2 normalisation; Fr-381: JubJub), at
+        the Fermat exponent p - 2 of the fields whose inversions the paths
+        run (Fq-381: G1 and Fq2 normalisation; Fr-381: JubJub; Fq-254:
+        Hyrax's BN254 G1), at
         the paths' one column (the table entry) and at 2^12, timed beside
         the chain of mul launches it replaced (``chain_ms``, equal limb for
         limb)."""
@@ -543,7 +578,7 @@ class Smoke:
         from poly_commit_tpu_torch.core import field_params as FP
 
         ok = True
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381):
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BN254):
             e = spec.modulus - 2
             products = e.bit_length() + bin(e).count("1")
             nw = spec.n_limbs // 2
@@ -573,9 +608,9 @@ class Smoke:
         return ok
 
     MAX_INV_LAUNCHES = 6  # a batched inversion of 2^20 columns: its tree's levels and one power
-    # setup's normalisation (2^20 G1 points) and IPA-PC's first key fold
-    # (2^15 JubJub points)
-    INV_COLUMNS = {"fq_bls12_381": 1 << 20, "fr_bls12_381": 1 << 15}
+    # setup's normalisation (2^20 G1 points), IPA-PC's first key fold
+    # (2^15 JubJub points) and Hyrax's row commitments (2^11 BN254 points)
+    INV_COLUMNS = {"fq_bls12_381": 1 << 20, "fr_bls12_381": 1 << 15, "fq_bn254": 1 << 11}
 
     @staticmethod
     def tree_loop(spec, a):
@@ -616,7 +651,7 @@ class Smoke:
 
         torch = self.torch
         ok = True
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381):
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BN254):
             m = self.INV_COLUMNS[spec.name]
             x = self.lazy(spec, m)
             x[:, 0] = 0
@@ -721,11 +756,27 @@ class Smoke:
             pts[i] = (x * zi * zi % q, y * zi * zi * zi % q)
         return pts
 
+    # the within-lane scan at the shapes of the paths, (steps, lanes,
+    # points): the 2^20 MSM's 256 steps x 2^16 lanes (BLS12-381), and a
+    # chunk of Hyrax's batched MSM at 22 variables, 512 rows x 32 windows x
+    # 16 lanes of 128 steps over 2^11 points (BN254)
+    SCAN_SHAPES = {"fq_bls12_381": (256, 1 << 16, 1 << 20), "fq_bn254": (128, 1 << 18, 1 << 11)}
+
     def check_ec(self):
-        from poly_commit_tpu_torch.core import curve, ec_lf, ff
+        """K2a's formulas on the BLS12-381 and BN254 base fields, and
+        madd_scan at each one's path shape."""
+        from poly_commit_tpu_torch.core import curve
+
+        ok = True
+        for group in (curve.BLS12_381_G1, curve.BN254_G1):
+            ok &= self.check_ec_formulas(group)
+            ok &= self.check_ec_scan(group.spec, *self.SCAN_SHAPES[group.spec.name])
+        return ok
+
+    def check_ec_formulas(self, group):
+        from poly_commit_tpu_torch.core import ec_lf, ff
 
         torch = self.torch
-        group = curve.BLS12_381_G1
         spec = group.spec
         n = 1 << 16  # the MSM scan's width: 16 windows x 4096 lanes
         pts = self.host_points(group, n, seed=1)
@@ -778,39 +829,34 @@ class Smoke:
             muls = field_muls[which] * finite + (7 if which in ("madd", "madd_packed", "add") else 0)
             n_bytes = (in_coords[which] + 3) * spec.n_limbs * 4 * n
             n_imad = muls * (4 * nw * nw + nw)
-            name = f"ec_{which}"
+            name = f"ec_{which}[{spec.name}]"
             device_ms = graph_ms(lambda: fn(spec, P, *a), 20)
-            if name in self.OFF_PATH:
+            if f"ec_{which}" in self.OFF_PATH:
                 bounds = self.bound(n_bytes, n_imad)
             else:
                 bounds = self.entry(name, "ec", err, ms, plain_ms, n_bytes, n_imad)
             emit({"phase": "kernels", "kernel": name, "n": n, "max_abs_err": err, "ms": ms,
                   "device_ms": device_ms, "plain_ms": plain_ms, **bounds})
-        return ok and self.check_ec_scan()
+        return ok
 
-    SCAN_LANES = 1 << 16  # 16 windows x 4096 lanes, the 2^20 MSM's
-    SCAN_STEPS = 256  # 2^20 points / 4096 lanes
     SCAN_EDGE_STEPS = 16  # the complete madd's edge lanes
-    SCAN_TABLE = 1 << 20
 
-    def check_ec_scan(self):
+    def check_ec_scan(self, spec, steps, lanes, n_pts):
         """K2a's one-launch within-lane scan against its plain version, bit
-        for bit on the raw limbs of every prefix and the final sums. At 256
-        steps x 2^16 lanes (the 2^20 MSM's shape) with the distinct madd, as
-        the main path runs it; the plain run is also its timed one. At
-        SCAN_EDGE_STEPS x 2^16 lanes with the distinct and the complete
-        madd, for the edge lanes. The table holds random lazy coordinates,
-        row 2^20 - 1 the negation of row 0; lane 0 skips every step, lane 1
-        adds row 5 twice from infinity (a doubling in the complete madd),
-        lane 2 adds row 0 then its negation (back to infinity). The kernel
-        is also timed beside the loop of madd_distinct_packed launches it
-        replaced (``chain_ms``, its prefixes held equal too)."""
+        for bit on the raw limbs of every prefix and the final sums. At the
+        path's ``steps`` x ``lanes`` over ``n_pts`` points (SCAN_SHAPES)
+        with the distinct madd, as the paths run it; the plain run is also
+        its timed one. At SCAN_EDGE_STEPS steps with the distinct and the
+        complete madd, for the edge lanes. The table holds random lazy
+        coordinates, its last row the negation of row 0; lane 0 skips every
+        step, lane 1 adds row 5 twice from infinity (a doubling in the
+        complete madd), lane 2 adds row 0 then its negation (back to
+        infinity). The kernel is also timed beside the loop of
+        madd_distinct_packed launches it replaced (``chain_ms``, its
+        prefixes held equal too)."""
         from poly_commit_tpu_torch.core import ec_lf, ff
-        from poly_commit_tpu_torch.core import field_params as FP
 
         torch = self.torch
-        spec = FP.FQ_BLS12_381
-        lanes, steps, n_pts = self.SCAN_LANES, self.SCAN_STEPS, self.SCAN_TABLE
         x, y = self.lazy(spec, n_pts), self.lazy(spec, n_pts)
         y[:, -1] = ff.plain("sub", spec, torch.zeros_like(y[:, :1]), y[:, :1].contiguous())[:, 0]
         x[:, -1] = x[:, 0]
@@ -858,11 +904,12 @@ class Smoke:
         nw = spec.n_limbs // 2
         kept = int(keep.sum())
         first = int(keep.any(0).sum())
-        n_imad = 11 * (kept - first) * IMAD_PER_FQ_PRODUCT
+        n_imad = 11 * (kept - first) * (4 * nw * nw + nw)
         n_bytes = n_pts * 2 * nw * 4 + steps * lanes * 5 + 3 * spec.n_limbs * steps * lanes * 2
-        bounds = self.entry("ec_madd_scan", "scan", max(errs.values()), ms, plain_ms, n_bytes, n_imad,
+        name = f"ec_madd_scan[{spec.name}]"
+        bounds = self.entry(name, "scan", max(errs.values()), ms, plain_ms, n_bytes, n_imad,
                             limbs=False)
-        emit({"phase": "kernels", "kernel": "ec_madd_scan", "lanes": lanes, "steps": steps,
+        emit({"phase": "kernels", "kernel": name, "lanes": lanes, "steps": steps, "points": n_pts,
               "max_abs_err": errs, "chain_max_abs_err": chain_err, "ms": ms,
               "chain_ms": chain_ms, "plain_ms": plain_ms, "kept_steps": kept, **bounds})
         return ok
@@ -1064,7 +1111,9 @@ class Smoke:
 
     # (windows, points, c): the 2^20 MSM's keys (the table entry), and the
     # c = 8 MSMs of IPA-PC and MultilinearPC
-    SORT_SHAPES = ((16, 1 << 20, 16), (32, 1 << 15, 8))
+    # the 2^20 MSM's, the c = 8 MSMs', and a chunk of Hyrax's batched MSM
+    # at 22 variables (512 rows x 32 windows of 2^11 points)
+    SORT_SHAPES = ((16, 1 << 20, 16), (32, 1 << 15, 8), (1 << 14, 1 << 11, 8))
 
     def check_sort(self):
         """K3 against its stable plain version, index for index (order,
@@ -1320,7 +1369,7 @@ class Smoke:
         emit({"phase": "main_path", "scheme": "MarlinKZG10/BLS12-381", "degree": degree,
               "hiding_bound": 1, "stage_ms": stages, "check_split_ms": split, "check": bool(ok),
               "tampered_rejected": rejected, "value_matches_host": value_ok, "launches": launches,
-              "ff_launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
+              "launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "msms_scanned_in_one_launch": scanned,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
         emit({"phase": "main_path_profile", "stage": "commit", **profile})
@@ -1376,7 +1425,7 @@ class Smoke:
               "degree_bound": bound, "hiding_bound": 1, "stage_ms": stages, "check": bool(ok),
               "tampered_rejected": rejected, "value_matches_host": value_ok,
               "shifted_commitment": shifted, "launches": launches,
-              "ff_launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
+              "launches_by_field": ff_by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and value_ok and shifted and all_launched
 
@@ -1466,7 +1515,7 @@ class Smoke:
         emit({"phase": "ntt", "field": spec.name, "log_n": NTT_LOG_N, "path_ms": path_ms,
               "checks": checks, "ms": ms, "intt_ms": intt_ms, "portable_ms": portable_ms,
               **bounds, "launches": launches,
-              "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "small_transform_in_one_launch": small_in_one})
         return all(checks.values()) and all_launched and small_in_one
 
@@ -1546,7 +1595,7 @@ class Smoke:
               "queried_columns": len(proofs[0][0].opening.columns),
               "stage_ms": stages, "commit_split_ms": split, "root_matches": root == comms[0].commitment.root,
               "check": bool(ok), "tampered_rejected": rejected, "value_matches_host": value_ok,
-              "launches": launches, "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and value_ok and all_launched and root == comms[0].commitment.root
 
@@ -1604,7 +1653,7 @@ class Smoke:
               "stage_ms": stages, "check_split_ms": split, "open_split_ms": open_split,
               "check": bool(ok), "tampered_rejected": rejected,
               "value_matches_host": device_value == value,
-              "launches": launches, "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and device_value == value and all_launched
 
@@ -1690,11 +1739,54 @@ class Smoke:
               "tampered_rejected": rejected,
               "value_matches_host": value_ok, "rounds": rounds, "launches": launches,
               "one_ed_smul_a_round": one_smul_a_round, "inner_products_in_two_launches": sums_ok,
-              "ff_launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched,
               "peak_mem_gb": peak_gb})
         emit({"phase": "ipa_fold_profile", "points": half, **fold_profile})
-        return bool(ok) and rejected and value_ok and all_launched and one_smul_a_round and sums_ok
+        eq_ok = self.ipa_equation(PC, ck, vk, lp, comms, states)
+        return (bool(ok) and rejected and value_ok and all_launched and one_smul_a_round and sums_ok
+                and eq_ok)
+
+    def ipa_equation(self, PC, ck, vk, lp, comms, states):
+        """IPA-PC's single-equation case on phase 8's SRS: a second hiding
+        polynomial, one equation a p + b p2 + c, open_combinations ->
+        check_combinations, the claimed value from host Horner, and the value
+        plus one rejected. Its launches stay out of the phase 4-8 sums."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs.data_structures import (HostRng, LabeledPolynomial,
+                                                               LinearCombination)
+
+        spec, p = PC.spec, PC.spec.modulus
+        coeffs2 = self.rand_field(spec, lp.poly.shape[0]).T.contiguous()
+        rng = HostRng(13)
+        stages = {}
+
+        def stage(name, fn):
+            return timed(stages, name, fn)
+
+        self.reset_counts()
+        lp2 = LabeledPolynomial("p2", coeffs2, hiding_bound=1)
+        comms2, states2 = stage("commit_p2", lambda: PC.commit(ck, [lp2], rng))
+        a, b, c = (rng.field_int(spec) for _ in range(3))
+        lc = LinearCombination("lc", [(a, "p"), (b, "p2"), (c, "one")])
+        z = rng.field_int(spec)
+        query_set = {("lc", ("z", z))}
+        value = (a * horner(F.to_ints(spec, lp.poly), z, p)
+                 + b * horner(F.to_ints(spec, coeffs2), z, p) + c) % p
+        proof = stage("open_combinations", lambda: PC.open_combinations(
+            ck, [lc], [lp, lp2], comms + comms2, query_set, PoseidonSponge(spec),
+            states + states2, rng))
+        ok = stage("check_combinations", lambda: PC.check_combinations(
+            vk, [lc], comms + comms2, query_set, {("lc", z): value}, proof, PoseidonSponge(spec)))
+        rejected = not stage("check_tampered", lambda: PC.check_combinations(
+            vk, [lc], comms + comms2, query_set, {("lc", z): (value + 1) % p}, proof,
+            PoseidonSponge(spec)))
+        launches, _, _ = self.read_counts(in_sums=False)
+        emit({"phase": "ipa_equation", "scheme": "InnerProductArgPC/JubJub", "equations": 1,
+              "terms": len(lc.terms), "stage_ms": stages, "check": bool(ok),
+              "tampered_rejected": rejected, "launches": launches})
+        return bool(ok) and rejected
 
     # -- phase 9 ----------------------------------------------------------
     def sonic_path(self):
@@ -1775,7 +1867,7 @@ class Smoke:
               "degree_bound": bound, "hiding_bound": 1, "points": 2, "stage_ms": stages,
               "setup_split_ms": setup_split, "check": bool(ok), "tampered_rejected": rejected,
               "values_match_host": values_ok, "neg_powers_of_h_match_host": neg_ok,
-              "launches": launches, "ff_launches_by_field": by_field,
+              "launches": launches, "launches_by_field": by_field,
               "ff_launches_by_size": ff_by_size, "all_kernels_launched": all_launched,
               "peak_mem_gb": peak_gb})
         return bool(ok) and rejected and values_ok and neg_ok and all_launched
@@ -1807,6 +1899,202 @@ class Smoke:
                   "digit_sort_launches": launches["digit_sort"]})
         return all_equal
 
+    # -- phase 10 ---------------------------------------------------------
+    def brakedown_path(self):
+        """MultilinearBrakedown over BN254 Fr at BRAKEDOWN_NUM_VARS
+        variables: setup -> trim -> commit -> batch_open -> batch_check, the
+        value against a host evaluation, a tampered value rejected; then
+        commit's parts timed apart on the same matrix (the encode on the
+        card, the column bytes, Blake2s, the Merkle tree)."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import linear_codes as LC
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+        from poly_commit_tpu_torch.pcs.linear_codes import engine
+        from poly_commit_tpu_torch.utils.merkle import MerkleTree, blake2s_hash
+
+        torch = self.torch
+        PC = LC.MultilinearBrakedown
+        spec, p, nv = PC.spec, PC.spec.modulus, BRAKEDOWN_NUM_VARS
+        table = self.rand_field(spec, 1 << nv).T.contiguous()  # (2^nv, L) Montgomery
+        rng = HostRng(10)
+        stages = {}
+
+        def stage(name, fn, into=stages):
+            return timed(into, name, fn)
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        pp = stage("setup", lambda: PC.setup(0, num_vars=nv, rng=rng, device=self.dev))
+        ck, vk = stage("trim", lambda: PC.trim(pp, 0))
+        lp = LabeledPolynomial("p", table, num_vars=nv)
+        comms, states = stage("commit", lambda: PC.commit(ck, [lp], rng))
+        point = tuple(rng.field_int(spec) for _ in range(nv))
+        query_set = {("p", ("z", point))}
+        proofs, values = stage("open", lambda: PC.batch_open(
+            ck, [lp], comms, query_set, PoseidonSponge(spec), states, rng))
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        key = next(iter(values))
+        bad = {key: (values[key] + 1) % p}
+        rejected = not stage("check_tampered", lambda: PC.batch_check(
+            vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field, ff_by_size = self.read_counts(in_sums=False)
+        needed = ["ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]", "ff_sub[fr_bn254]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+
+        md = comms[0].commitment.metadata
+        mat = states[0].mat
+        split = {}
+        ext = stage("encode", lambda: PC.code.encode_rows(mat, ck), split)
+        raw = stage("column_bytes", lambda: engine.column_bytes(spec, ext), split)
+        leaves = stage("blake2s", lambda: [blake2s_hash(c.tobytes()) for c in raw], split)
+        root = stage("merkle", lambda: MerkleTree(leaves, ck.merkle_config()).root, split)
+        del ext, raw
+
+        ints = F.to_ints(spec, table)  # the value: the host MLE fold
+        for z in point:
+            ints = [(a + z * (b - a)) % p for a, b in zip(ints[0::2], ints[1::2])]
+        value_ok = values[key] == ints[0]
+        root_ok = root == comms[0].commitment.root
+        emit({"phase": "brakedown", "scheme": PC.__name__, "num_vars": nv, "rows": md.n_rows,
+              "cols": md.n_cols, "ext_cols": md.n_ext_cols,
+              "queried_columns": len(proofs[0][0].opening.columns),
+              "a_nonzeros": sum(pp.a_dims[i][0] * pp.a_dims[i][2] for i in range(len(pp.a_dims))),
+              "b_nonzeros": sum(pp.b_dims[i][0] * pp.b_dims[i][2] for i in range(len(pp.b_dims))),
+              "stage_ms": stages, "commit_split_ms": split, "root_matches": root_ok,
+              "check": bool(ok), "tampered_rejected": rejected, "value_matches_host": value_ok,
+              "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
+        return bool(ok) and rejected and value_ok and root_ok and all_launched
+
+    # -- phase 11 ---------------------------------------------------------
+    ROW_LANES = (16, 32, 64, 128, 256)  # msm_rows lane counts timed on one chunk
+
+    def hyrax_path(self):
+        """Hyrax over BN254 at HYRAX_NUM_VARS variables, one hiding
+        polynomial: setup -> trim -> commit -> open -> check, the value
+        against the host MLE fold, a tampered proof rejected (z[0] + 1, and
+        com_eval replaced by com_d); commit's host window folds counted (0:
+        the batched MSM folds on the card) and its launches. Then commit
+        again with its parts timed apart, once under torch.profiler, and
+        msm_rows on one chunk of rows at each of ROW_LANES."""
+        import copy
+
+        from poly_commit_tpu_torch.core import ec_lf, ff, msm_gpu, sort_gpu
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core.serialize import device_points_to_ints
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import hyrax
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+
+        torch = self.torch
+        PC = hyrax.HyraxPC
+        spec, p, nv = PC.spec, PC.spec.modulus, HYRAX_NUM_VARS
+        table = self.rand_field(spec, 1 << nv).T.contiguous()  # (2^nv, L) Montgomery
+        rng = HostRng(11)
+        stages = {}
+
+        def stage(name, fn, into=stages):
+            return timed(into, name, fn)
+
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        pp = stage("setup", lambda: PC.setup(0, num_vars=nv, rng=rng, device=self.dev))
+        ck, vk = stage("trim", lambda: PC.trim(pp))
+        lp = LabeledPolynomial("p", table, hiding_bound=1, num_vars=nv)
+        before = {k: w.launches for k, w in self.wrappers.items()}
+        with spans([(msm_gpu, "_fold_host")]) as folds:
+            comms, states = stage("commit", lambda: PC.commit(ck, [lp], rng))
+        commit_launches = {k: w.launches - before[k] for k, w in self.wrappers.items()
+                           if w.launches != before[k]}
+        point = tuple(rng.field_int(spec) for _ in range(nv))
+        query_set = {("p", ("z", point))}
+        proofs, values = stage("open", lambda: PC.batch_open(
+            ck, [lp], comms, query_set, PoseidonSponge(spec), states, rng))
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        tampered = {}
+        for field in ("z", "com_eval"):
+            bad = copy.deepcopy(proofs)
+            if field == "z":
+                bad[0][0].z[0] = (bad[0][0].z[0] + 1) % p
+            else:
+                bad[0][0].com_eval = bad[0][0].com_d
+            tampered[field] = not stage(f"check_tampered_{field}", lambda: PC.batch_check(
+                vk, comms, query_set, values, bad, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field, ff_by_size = self.read_counts(in_sums=False)
+        needed = ["ec_madd_scan[fq_bn254]", "ec_add[fq_bn254]", "ec_double[fq_bn254]",
+                  "ec_madd[fq_bn254]", "ec_madd_distinct[fq_bn254]", "digit_sort",
+                  "ff_batch_inv[fq_bn254]", "ff_pow[fq_bn254]", "ff_mont_mul[fq_bn254]",
+                  "ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        host_folds = folds.get("_fold_host", (0.0, 0))[1]
+        dim = ck.dim
+        w_count = msm_gpu.SCALAR_BITS // msm_gpu.rows_params(self.dev, dim)[0]
+        chunks = -(-dim // max(1, min(msm_gpu.CHUNK // dim, msm_gpu.MAX_ROW_WINDOWS // w_count)))
+
+        # commit's parts apart: within the batched MSM the digit sort, the
+        # scan and the rest of the body (gathers, lane and Abel trees), the
+        # device fold; the hiding terms' fixed-base multiplication; the
+        # normalisations, by columns (the row commitments', and the
+        # fixed-base table's)
+        def part(attr, args):
+            if attr == "jacobian_to_affine":
+                return f"normalise_{args[1][0].shape[1]}_columns"
+            return attr
+
+        split = {}
+        with spans([(sort_gpu, "digit_sort"), (ec_lf, "madd_scan"), (msm_gpu, "_msm_body"),
+                    (msm_gpu, "fold_device"), (msm_gpu, "fixed_base"),
+                    (msm_gpu, "jacobian_to_affine")], key=part) as parts:
+            stage("commit", lambda: PC.commit(ck, [lp], HostRng(12)), split)
+        commit_split = {"total_ms": split["commit"],
+                        **{f"{k}_ms": ms for k, (ms, _) in parts.items()},
+                        **{f"{k}_calls": calls for k, (_, calls) in parts.items()}}
+        commit_split["trees_and_gathers_ms"] = (commit_split["_msm_body_ms"]
+                                                - commit_split["digit_sort_ms"]
+                                                - commit_split["madd_scan_ms"])
+        profile = self.profile(lambda: PC.commit(ck, [lp], HostRng(12)))
+
+        # msm_rows on the first chunk of rows at each lane count: the same
+        # group elements, and its time
+        mat = states[0].mat
+        rows = min(dim, msm_gpu.CHUNK // dim)
+        sc = F.from_mont(spec, mat[:rows])
+        x, y, inf = ck.com_key
+        x, y = ff.from_field_last(x), ff.from_field_last(y)
+        lanes_ms, lanes_pts = {}, {}
+        c, rows_params = msm_gpu.rows_params(self.dev, dim)[0], msm_gpu.rows_params
+        try:
+            for t in self.ROW_LANES:
+                msm_gpu.rows_params = lambda device, n, t=t: (c, t)
+                out = stage(str(t), lambda: msm_gpu.msm_rows(hyrax.GROUP, sc, x, y, inf, True),
+                            lanes_ms)
+                lanes_pts[t] = device_points_to_ints(hyrax.GROUP, tuple(
+                    ff.to_field_last(cc, (rows,)) for cc in out))
+        finally:
+            msm_gpu.rows_params = rows_params
+        lanes_equal = all(v == lanes_pts[self.ROW_LANES[0]] for v in lanes_pts.values())
+        del sc, lanes_pts
+
+        ints = F.to_ints(spec, table)  # the value: the host MLE fold
+        for z in point:
+            ints = [(a + z * (b - a)) % p for a, b in zip(ints[0::2], ints[1::2])]
+        value_ok = values[("p", point)] == ints[0]
+        emit({"phase": "hyrax", "scheme": "Hyrax/BN254", "num_vars": nv, "rows": dim,
+              "row_chunks": chunks, "stage_ms": stages, "commit_split_ms": commit_split,
+              "commit_host_folds": host_folds, "commit_launches": commit_launches,
+              "check": bool(ok), "tampered_rejected": tampered, "value_matches_host": value_ok,
+              "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb,
+              "msm_rows_lanes_ms": lanes_ms, "msm_rows_lanes_equal": lanes_equal})
+        emit({"phase": "hyrax_profile", "stage": "commit", **profile})
+        return (bool(ok) and all(tampered.values()) and value_ok and all_launched
+                and host_folds == 0 and lanes_equal)
+
 
 def main() -> int:
     import torch
@@ -1832,7 +2120,8 @@ def main() -> int:
                    "ntt": smoke.ntt_path(),
                    "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni"),
                    "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path(),
-                   "sonic": smoke.sonic_path(), "ark_golden": smoke.ark_golden()}
+                   "sonic": smoke.sonic_path(), "ark_golden": smoke.ark_golden(),
+                   "brakedown": smoke.brakedown_path(), "hyrax": smoke.hyrax_path()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
         k4c = smoke.k4c_launches

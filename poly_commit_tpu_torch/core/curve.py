@@ -1,4 +1,4 @@
-"""The device groups: G1 and G2 of the pairing curves, and JubJub.
+"""The device groups: G1 and G2 of the pairing curves, BN254's G1, and JubJub.
 
 Counterpart of poly_commit_tpu/core/curve.py. Points are tuples of
 limbs-last int32 tensors: Jacobian (X, Y, Z) with Z == 0 at infinity for
@@ -243,6 +243,15 @@ BLS12_377_G1 = WeierstrassGroup(
     b_int=FP.BLS12_377_B,
     gen_x=FP.BLS12_377_G1_X,
     gen_y=FP.BLS12_377_G1_Y,
+)
+
+BN254_G1 = WeierstrassGroup(
+    name="bn254_g1",
+    spec=FP.FQ_BN254,
+    scalar_spec=FP.FR_BN254,
+    b_int=FP.BN254_B,
+    gen_x=FP.BN254_G1_X,
+    gen_y=FP.BN254_G1_Y,
 )
 
 BLS12_381_G2 = G2Group(

@@ -40,7 +40,8 @@ every lane in one K2b launch: the MSB-first chain of ``ed_double`` and
 (poly_commit_tpu/core/curve.py::scalar_mul), limb for limb.
 
 The plain versions below follow ec_lf.py's formulas on ff's plain field ops
-and run only for CPU tensors; each wrapper counts its kernel launches.
+and run only for CPU tensors; each wrapper counts its kernel launches, in
+all and by field (``launches_by_field``).
 """
 
 from __future__ import annotations
@@ -372,8 +373,14 @@ def _run(wrapper, which: str, spec: FieldSpec, coords):
                                     stream)
     if rc != 0:
         raise RuntimeError(f"ec {which} kernel launch failed: CUDA error {rc}")
-    wrapper.launches += 1
+    _count(wrapper, spec)
     return outs
+
+
+def _count(wrapper, spec: FieldSpec) -> None:
+    """One launch of ``wrapper``'s kernel on ``spec``."""
+    wrapper.launches += 1
+    wrapper.launches_by_field[spec.name] = wrapper.launches_by_field.get(spec.name, 0) + 1
 
 
 def plain(which: str, spec: FieldSpec, *coords):
@@ -485,13 +492,14 @@ def madd_scan(spec, table, idx, keep, distinct: bool):
                                   steps, ff.kernel_consts(spec), D.stream_of(table))
     if rc != 0:
         raise RuntimeError(f"ec madd_scan kernel launch failed: CUDA error {rc}")
-    madd_scan.launches += 1
+    _count(madd_scan, spec)
     return tuple(prefixes[k, :, steps - 1].contiguous() for k in range(3)), prefixes
 
 
 WRAPPERS = (madd, madd_distinct, madd_packed, madd_distinct_packed, add, double, madd_scan)
 for _w in WRAPPERS:
     _w.launches = 0
+    _w.launches_by_field = {}
 
 
 def infinity(spec: FieldSpec, n: int, device):
@@ -632,7 +640,7 @@ def ed_smul(spec, p, k: int):
                                      k.bit_length(), D.stream_of(coords[0]))
     if rc != 0:
         raise RuntimeError(f"ec ed_smul kernel launch failed: CUDA error {rc}")
-    ed_smul.launches += 1
+    _count(ed_smul, spec)
     return outs
 
 
@@ -645,6 +653,7 @@ def ed_smul_plain(spec, p, k: int):
 ED_WRAPPERS = (ed_madd, ed_madd_packed, ed_add, ed_double, ed_smul)
 for _w in G2_WRAPPERS + ED_WRAPPERS:
     _w.launches = 0
+    _w.launches_by_field = {}
 
 
 def ed_infinity(spec: FieldSpec, n: int, device):

@@ -338,12 +338,14 @@ def _is_g2(group) -> bool:
 
 def host_group(group):
     """The host mirror of a group, by name (G1 or G2 of either BLS curve,
-    or JubJub)."""
+    BN254's G1, or JubJub)."""
     n = group.name
     if n == "bls12_381_g1":
         return HostWeierstrass(_Fp(FP.BLS12_381_Q), FP.BLS12_381_R)
     if n == "bls12_381_g2":
         return HostWeierstrass(_Fp2(FP.BLS12_381_Q, -1), FP.BLS12_381_R)
+    if n == "bn254_g1":
+        return HostWeierstrass(_Fp(FP.BN254_Q), FP.BN254_R)
     if n == "bls12_377_g1":
         return HostWeierstrass(_Fp(FP.BLS12_377_Q), FP.BLS12_377_R)
     if n == "bls12_377_g2":

@@ -44,6 +44,18 @@ def msm(group, scalars: torch.Tensor, points, assume_distinct: bool = False):
     return tuple(ops.from_lf(group.spec, cc, ()) for cc in out)
 
 
+def msm_rows(group, scalars: torch.Tensor, points, assume_distinct: bool = False):
+    """B MSMs over the same N bases, one a row of ``scalars`` (B, N, 16)
+    int32 plain limbs; points affine (x, y, inf) with batch (N,). Returns a
+    projective point with batch (B,), canonical: row b is
+    msm(scalars[b], points). G1 groups only; the windows fold on the
+    device (msm_gpu.msm_rows)."""
+    ops = _ops(group)
+    x, y, inf = points
+    out = msm_gpu.msm_rows(group, scalars, ops.to_lf(x), ops.to_lf(y), inf, assume_distinct)
+    return tuple(ops.from_lf(group.spec, cc, (scalars.shape[0],)) for cc in out)
+
+
 def msm_mont(group, scalars_mont: torch.Tensor, points, **kw):
     """MSM with scalars given in Montgomery form of ``group.scalar_spec``."""
     return msm(group, F.from_mont(group.scalar_spec, scalars_mont), points, **kw)

@@ -15,7 +15,9 @@ Counterpart of poly_commit_tpu/core/msm_tpu.py, following ``_msm_body``:
   4. Each bucket's running sum G_b is the global prefix at its tail:
      lane prefix + within-lane prefix, one gathered ``add``.
   5. Abel summation S_w = (2^c - 1) G_last - sum_{b < 2^c - 1} G_b: a
-     halving tree of ``add`` launches; the windows fold on the host.
+     halving tree of ``add`` launches; the windows fold on the host
+     (``_fold_host``) for one MSM, on the device (``fold_device``) for the
+     rows of ``msm_rows``.
 
 The group law comes from an ops object, as in msm_tpu.py: ``JACOBIAN_OPS``
 (G1, kernel K2a), ``G2_OPS`` (G2 over Fq2, K2c; coordinates are (2L, N)
@@ -28,6 +30,15 @@ T and c are chosen from the device and N: on the card c = 16 and T = 4096
 from 2^16 points up (16 windows x 4096 lanes = 65,536 points per launch),
 c = 8 and T = 1024 from 2^8, and c = 4 and T = 16 below that and on the CPU,
 where the plain versions run eagerly. The result is the same group element.
+
+``msm_rows`` is the counterpart of Hyrax's ``jax.vmap`` of the MSM over
+rows sharing one set of bases (poly_commit_tpu/pcs/hyrax.py): the rows'
+windows are stacked as more windows of one body (one sort, one scan, one
+lane tree and one Abel tree a chunk of rows), and the fold runs on the
+device for every row at once, as msm_tpu does under a trace
+(``_combine_sw_device``, ``_fold_device``). Its lane count gives each lane
+ROW_STEPS steps (``rows_params``): B rows fill the card with few lanes a
+window, where a single MSM of the same N needs many.
 
 ``fixed_base`` replaces ``_fixed_base_body`` with a shape suited to the
 card: the 256 doublings of the base (``double``), one batched normalisation
@@ -249,11 +260,12 @@ def ops_for(group):
 
 
 def _digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
-    """(N, 16) plain 16-bit limbs -> (W, N) c-bit window digits (int32)."""
+    """(..., N, 16) plain 16-bit limbs -> (..., W, N) c-bit window digits
+    (int32)."""
     w_count = SCALAR_BITS // c
     per_limb = 16 // c
     w = torch.arange(w_count, device=scalars.device)
-    limb = scalars.T[w // per_limb]  # (W, N)
+    limb = scalars.transpose(-1, -2)[..., w // per_limb, :]  # (..., W, N)
     shift = ((w % per_limb) * c).to(torch.int32).unsqueeze(1)
     return ((limb >> shift) & ((1 << c) - 1)).contiguous()
 
@@ -262,22 +274,27 @@ def _flat(pts, L: int, m: int):
     return tuple(cc.reshape(L, m).contiguous() for cc in pts)
 
 
-def _msm_body(spec: FieldSpec, ops, scalars, x, y, inf, assume_distinct: bool, c: int,
-              t_lanes: int):
-    """scalars (N, 16) plain; x, y (rows, N) affine; inf (N,) bool; N a
-    multiple of T. Returns G_last and sum G per window: 2 n_coords coords
-    (rows, W)."""
-    n = scalars.shape[0]
+def _window_digits(scalars, inf, c: int) -> torch.Tensor:
+    """(..., N, 16) plain scalars -> (..., W, N) digits, the sentinel 2^c
+    where the point is at infinity (inf (N,))."""
+    digs = _digits(scalars, c)
+    return torch.where(inf, torch.full_like(digs, 1 << c), digs)
+
+
+def _msm_body(spec: FieldSpec, ops, digs, x, y, assume_distinct: bool, c: int, t_lanes: int):
+    """digs (W, N) window digits in [0, 2^c], the sentinel 2^c for a point
+    left out; x, y (rows, N) affine; N a multiple of T. W counts windows of
+    every MSM that shares these bases (msm_rows stacks its rows' windows).
+    Returns G_last and sum G per window: 2 n_coords coords (rows, W)."""
+    n = digs.shape[1]
     L = ops.rows(spec)
     nc = ops.n_coords
     dev = x.device
     bsz = 1 << c
-    w_count = SCALAR_BITS // c
+    w_count = digs.shape[0]
     l_steps = n // t_lanes
     m = w_count * t_lanes
 
-    digs = _digits(scalars, c)
-    digs = torch.where(inf.unsqueeze(0), torch.full_like(digs, bsz), digs)
     order, sd, incl = sort_gpu.digit_sort(digs, bsz)
 
     # lane t of window w covers sorted positions [t S, (t + 1) S)
@@ -383,8 +400,100 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
         x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
         y = torch.cat([y, y.new_zeros((y.shape[0], pad))], 1)
         inf = torch.cat([inf, inf.new_ones((pad,))], 0)
-    parts = _msm_body(spec, ops, scalars, x, y, inf, assume_distinct, c, t_lanes)
+    parts = _msm_body(spec, ops, _window_digits(scalars, inf, c), x, y, assume_distinct, c,
+                      t_lanes)
     return ops.from_host(spec, _fold_host(group, ops, parts, c), dev)
+
+
+# ---------------------------------------------------------------------------
+# batched MSM over shared bases, the window fold on the device (Hyrax)
+# ---------------------------------------------------------------------------
+
+ROW_STEPS = 128  # steps a lane of msm_rows scans: the lane tree stays small beside the scan
+MAX_ROW_WINDOWS = 1 << 15  # windows a digit sort of msm_rows takes (K3's grid: below 2^16)
+
+
+def rows_params(device: torch.device, n: int):
+    """(c, T) for msm_rows over n points a row: c as ``params`` takes it,
+    and T so that each lane scans ROW_STEPS steps (n a power of two). A
+    single MSM of 2^11 points takes T = 1024 lanes of 2 steps, where the
+    lane tree costs as much as the scan; B rows of it scan B W T lanes at
+    once, so few lanes a window still fill the card (Hyrax at 22
+    variables: 512 rows x 32 windows x 16 lanes a chunk)."""
+    c, _ = params(device, n)
+    return c, max(1, n // ROW_STEPS)
+
+
+def _combine_device(spec: FieldSpec, ops, parts, c: int):
+    """S_w = (2^c - 1) G_last - sum G on every column: 2^c G_last by c
+    doublings, less (G_last + sum G)."""
+    nc = ops.n_coords
+    g_last, sum_g = parts[:nc], parts[nc:]
+    acc = g_last
+    for _ in range(c):
+        acc = ops.double(spec, acc)
+    return ops.add(spec, acc, EC.neg(spec, ops.add(spec, g_last, sum_g)))
+
+
+def fold_device(spec: FieldSpec, ops, parts, c: int, rows: int):
+    """The window fold of ``rows`` MSMs on the device, the counterpart of
+    msm_tpu._combine_sw_device and _fold_device batched over rows: parts
+    are _msm_body's G_last and sum G with columns row-major (rows W), and
+    the result row b's sum_w 2^(c w) S_w, coords (L, rows). A halving tree
+    over the windows: the upper half of each row's windows is doubled
+    c half times and added to the lower half, every row in one launch."""
+    L = ops.rows(spec)
+    cur = _combine_device(spec, ops, parts, c)
+    width = cur[0].shape[1] // rows
+    while width > 1:
+        half = width // 2
+        view = tuple(cc.view(L, rows, width) for cc in cur)
+        hi = _flat(tuple(cc[:, :, half:] for cc in view), L, rows * half)
+        lo = _flat(tuple(cc[:, :, :half] for cc in view), L, rows * half)
+        for _ in range(c * half):
+            hi = ops.double(spec, hi)
+        cur = ops.add(spec, lo, hi)
+        width = half
+    return cur
+
+
+def msm_rows(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
+    """B MSMs over the same N bases: row b is sum_i scalars[b, i] *
+    (x_i, y_i). scalars (B, N, 16) int32 plain limbs; x, y (L, N) affine
+    Montgomery limbs; inf (N,) bool. Returns Jacobian coords (L, B), each
+    column the same group element as ``msm`` of that row.
+
+    The rows' windows are sorted together in one K3 call (a row's W
+    windows are W more keys rows), scanned in one ``madd_scan`` over B W T
+    lanes, and summed by one lane tree and one Abel tree over all of them;
+    the windows fold on the device (``fold_device``): no host work per row.
+    Rows go through in chunks of at most CHUNK scalars (the kept prefixes
+    take ~6.4 GB at 2^20 for c = 8). G1 only."""
+    spec = group.spec
+    ops = ops_for(group)
+    if ops is not JACOBIAN_OPS:
+        raise ValueError(f"{group.name}: msm_rows takes a G1 group")
+    b_rows, n = scalars.shape[0], scalars.shape[1]
+    dev = x.device
+    if b_rows == 0 or n == 0:
+        return ops.infinity(spec, b_rows, dev)
+    n2 = 1 << (n - 1).bit_length()
+    c, t_lanes = rows_params(dev, n2)
+    n2 = max(n2, t_lanes)
+    if n2 != n:
+        pad = n2 - n
+        scalars = torch.cat([scalars, scalars.new_zeros((b_rows, pad, scalars.shape[2]))], 1)
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
+        y = torch.cat([y, y.new_zeros((y.shape[0], pad))], 1)
+        inf = torch.cat([inf, inf.new_ones((pad,))], 0)
+    w_count = SCALAR_BITS // c
+    per_chunk = max(1, min(CHUNK // n2, MAX_ROW_WINDOWS // w_count))
+    parts = []
+    for s in range(0, b_rows, per_chunk):
+        digs = _window_digits(scalars[s : s + per_chunk], inf, c).view(-1, n2)
+        parts.append(_msm_body(spec, ops, digs, x, y, assume_distinct, c, t_lanes))
+    parts = tuple(torch.cat([p[k] for p in parts], 1) for k in range(2 * ops.n_coords))
+    return fold_device(spec, ops, parts, c, b_rows)
 
 
 # ---------------------------------------------------------------------------

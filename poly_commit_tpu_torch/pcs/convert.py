@@ -12,9 +12,12 @@ same SRS.
 ``ligero_params_from_jax`` and ``lincode_state_from_jax`` carry Ligero
 parameters and a commitment's prover state across (read by attribute), so
 the port can open what the JAX package committed.
-``multilinear_params_from_jax`` and ``ipa_params_from_jax`` do the same for
-MultilinearPC's and IPA-PC's universal parameters: device points keep their
-limbs (G2 as (N, 2, L) pairs), host points stay host ints.
+``multilinear_params_from_jax``, ``ipa_params_from_jax`` and
+``hyrax_params_from_jax`` do the same for MultilinearPC's, IPA-PC's and
+Hyrax's universal parameters: device points keep their limbs (G2 as
+(N, 2, L) pairs), host points stay host ints. ``brakedown_params_from_jax``
+carries Brakedown's parameters with their sparse matrices, as row indices
+and value ints.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch
 from .. import device as D
 from ..core import ff
 from ..core import field_params as FP
-from . import ipa_pc, kzg10, multilinear_pc
+from . import hyrax, ipa_pc, kzg10, multilinear_pc
 from .curve_ctx import CTX_BLS12_381, CurveCtx
+from .linear_codes.brakedown import BrakedownPCParams, SparseMat
 from .linear_codes.engine import LinCodePCCommitmentState
 from .linear_codes.ligero import LigeroPCParams
 
@@ -122,3 +126,37 @@ def ipa_params_from_jax(pp, device=None) -> ipa_pc.UniversalParams:
 
     return ipa_pc.UniversalParams(comm_key=_affine(pp.comm_key, D.resolve(device)),
                                   h=pt(pp.h), s=pt(pp.s), max_degree=int(pp.max_degree))
+
+
+def hyrax_params_from_jax(pp, device=None) -> hyrax.UniversalParams:
+    """A JAX Hyrax ``UniversalParams`` (read by attribute) -> the port's:
+    the Pedersen key on the device with the same limbs, h and the key's
+    host points as ints."""
+    def pt(v):
+        return (int(v[0]), int(v[1]))
+
+    return hyrax.UniversalParams(com_key=_affine(pp.com_key, D.resolve(device)), h=pt(pp.h),
+                                 com_key_host=[pt(v) for v in pp.com_key_host])
+
+
+def brakedown_params_from_jax(p, device=None) -> BrakedownPCParams:
+    """A JAX ``BrakedownPCParams`` (read by attribute) -> the port's, whose
+    matrices live on ``device`` and whose ``check`` re-encodes there. Each
+    sparse matrix carries over as its row indices and its values' ints."""
+    dev = D.resolve(device)
+    spec = _SPECS[p.spec.name]
+
+    def mat(a) -> SparseMat:
+        idx = np.asarray(a.row_idx).astype(np.int64)
+        vals = ff.limbs_to_ints(spec, np.asarray(a.val).reshape(-1, spec.n_limbs))
+        val = ff.ints_to_limbs(spec, vals).astype(np.int32).reshape(idx.shape + (spec.n_limbs,))
+        return SparseMat(n=int(a.n), m=int(a.m), row_idx=torch.from_numpy(idx).to(dev),
+                         val=torch.from_numpy(val).to(dev))
+
+    return BrakedownPCParams(
+        spec=spec, sec_param=int(p.sec_param), alpha=tuple(p.alpha), beta=tuple(p.beta),
+        rho_inv=tuple(p.rho_inv), base_len=int(p.base_len), n=int(p.n), m=int(p.m),
+        m_ext=int(p.m_ext), a_dims=[tuple(d) for d in p.a_dims], b_dims=[tuple(d) for d in p.b_dims],
+        start=list(p.start), end=list(p.end), a_mats=[mat(a) for a in p.a_mats],
+        b_mats=[mat(b) for b in p.b_mats], check_well_formedness=bool(p.check_well_formedness),
+        device=None if device is None else str(device))

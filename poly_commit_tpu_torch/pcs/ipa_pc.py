@@ -21,8 +21,8 @@ fold through its portable scan). Hash-to-curve, the transcript and the verifier'
 accumulation run on host ints, as do the h' terms of each round's L and R
 (one point each). The shifted-key commitment is a shifted polynomial
 against the full key (the same group element). The LC methods
-(open_combinations / check_combinations) and the mesh branches are not
-ported yet.
+(open_combinations / check_combinations) combine the commitments on host
+ints and the polynomials on the device. The mesh branches are not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from ..core.serialize import field_to_bytes, point_to_bytes_uncompressed
 from . import errors
 from .data_structures import (
     LabeledCommitment,
+    LabeledPolynomial,
     PolynomialCommitment,
     _group_queries,
     _pt_key,
@@ -536,9 +537,79 @@ class InnerProductArgPC(PolynomialCommitment):
 
     # -- LC overrides (mod.rs:855-1050) -------------------------------------
     @classmethod
-    def open_combinations(cls, *args, **kwargs):
-        raise NotImplementedError("IPA-PC's linear-combination opening is not ported yet")
+    def _lc_commitment(cls, lc, label_map):
+        """The combined commitment of one linear combination (host points)
+        and its degree bound: a bounded term stands alone with coefficient
+        one."""
+        p_mod = SPEC.modulus
+        degree_bound, comb, scomb = None, None, None
+        for coeff, term in lc.terms:
+            if term == "one":
+                continue
+            if term not in label_map:
+                raise errors.MissingPolynomial(term)
+            cc = label_map[term]
+            if cc.degree_bound is not None:
+                if len(lc.terms) != 1:
+                    raise errors.EquationHasDegreeBounds(lc.label)
+                if coeff % p_mod != 1:
+                    raise ValueError(f"{lc.label}: a degree-bounded term takes the coefficient 1")
+                degree_bound = cc.degree_bound
+            comb = HGROUP.add(comb or (0, 1), HGROUP.mul_fast(cc.commitment.comm, coeff))
+            if cc.commitment.shifted_comm is not None:
+                scomb = HGROUP.add(scomb or (0, 1),
+                                   HGROUP.mul_fast(cc.commitment.shifted_comm, coeff))
+        return LabeledCommitment(lc.label, Commitment(comb, scomb), degree_bound)
 
     @classmethod
-    def check_combinations(cls, *args, **kwargs):
-        raise NotImplementedError("IPA-PC's linear-combination check is not ported yet")
+    def open_combinations(cls, ck, linear_combinations, polynomials, commitments,
+                          eqn_query_set, sponge, states, rng=None):
+        """Open each linear combination as one polynomial: its coefficients,
+        randomness and commitment combined (mod.rs:855-953); the constant
+        terms stay out of the polynomial, and check_combinations takes them
+        off the claimed values."""
+        p_mod = SPEC.modulus
+        dev = ck.comm_key[0].device
+        polys = {p.label: (p, s) for p, s in zip(polynomials, states)}
+        comms = {c.label: c for c in commitments}
+        lc_polys, lc_states, lc_comms = [], [], []
+        for lc in linear_combinations:
+            lc_comm = cls._lc_commitment(lc, comms)
+            poly, hiding_bound, rand_acc, srand_acc = None, None, 0, None
+            for coeff, term in lc.terms:
+                if term == "one":
+                    continue
+                if term not in polys:
+                    raise errors.MissingPolynomial(term)
+                cp, cs = polys[term]
+                hiding_bound = max(hiding_bound or 0, cp.hiding_bound or 0) or None
+                scaled = P.scale(SPEC, cp.poly, F.from_ints(SPEC, coeff, device=dev))
+                poly = scaled if poly is None else P.add(SPEC, poly, scaled)
+                rand_acc = (rand_acc + coeff * cs.rand) % p_mod
+                if cs.shifted_rand is not None:
+                    srand_acc = ((srand_acc or 0) + coeff * cs.shifted_rand) % p_mod
+            if poly is None:
+                poly = F.zeros(SPEC, (1,), dev)
+            lc_polys.append(LabeledPolynomial(lc.label, poly, lc_comm.degree_bound, hiding_bound))
+            lc_states.append(Randomness(rand=rand_acc, shifted_rand=srand_acc))
+            lc_comms.append(lc_comm)
+        proofs, _ = cls.batch_open(ck, lc_polys, lc_comms, eqn_query_set, sponge, lc_states, rng)
+        return (proofs, None)
+
+    @classmethod
+    def check_combinations(cls, vk, linear_combinations, commitments, eqn_query_set,
+                           eqn_evaluations, proof_and_evals, sponge):
+        """mod.rs:955-1050: each combination's commitment, and its claimed
+        values less the constant terms, through batch_check."""
+        proofs, _ = proof_and_evals
+        comms = {c.label: c for c in commitments}
+        p_mod = SPEC.modulus
+        evals = {k: int(v) % p_mod for k, v in eqn_evaluations.items()}
+        lc_comms = []
+        for lc in linear_combinations:
+            for coeff, term in lc.terms:
+                if term == "one":
+                    for key in [k for k in evals if k[0] == lc.label]:
+                        evals[key] = (evals[key] - coeff) % p_mod
+            lc_comms.append(cls._lc_commitment(lc, comms))
+        return cls.batch_check(vk, lc_comms, eqn_query_set, evals, proofs, sponge)

@@ -619,3 +619,101 @@ def test_sonic_neg_powers_of_h_on_card_match_host(cuda):
         want.append(acc)
         acc = hg.mul_fast(acc, binv)
     assert hostec.device_affine_to_host(g2, pp.neg_powers_of_h) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", [(8, 2048), (3, 100)])
+def test_msm_rows_on_card_matches_host(cuda, rows, n):
+    """The batched MSM over shared BN254 bases (K3, madd_scan, the lane and
+    Abel trees, the device fold) against the host, row by row; row 1 is all
+    zero and one point is at infinity."""
+    group = curve.BN254_G1
+    pts = _points(group, n, 31)
+    rnd = random.Random(32)
+    scal = [[rnd.randrange(group.scalar_spec.modulus) for _ in range(n)] for _ in range(rows)]
+    scal[1] = [0] * n
+    triples = [(x, y, False) for x, y in pts]
+    triples[7] = (0, 1, True)
+    before = ec_lf.madd_scan.launches
+    sc = torch.stack([msm.scalars_from_ints(group.scalar_spec, row, cuda) for row in scal])
+    out = msm.msm_rows(group, sc, curve.affine_from_ints(group, triples, cuda), assume_distinct=True)
+    assert ec_lf.madd_scan.launches == before + 1
+    hg = hostec.host_group(group)
+    live = [None if t[2] else p for t, p in zip(triples, pts)]
+    for b in range(rows):
+        got = hostec.device_proj_to_host(group, tuple(c[b] for c in out))
+        assert got == hg.msm_fast(scal[b], live)
+
+
+@pytest.mark.gpu
+def test_fold_device_on_card_matches_fold_host(cuda):
+    """The batched window fold on the card (K2a double and add launches)
+    against the host fold of each row's windows."""
+    from poly_commit_tpu_torch.core import msm_gpu
+
+    group = curve.BN254_G1
+    spec, ops = group.spec, msm_gpu.JACOBIAN_OPS
+    n, rows = 256, 4
+    c, t_lanes = msm_gpu.rows_params(cuda, n)
+    pts = _points(group, n, 33)
+    rnd = random.Random(34)
+    sc = torch.stack([msm.scalars_from_ints(group.scalar_spec, [rnd.randrange(group.scalar_spec.modulus)
+                                                                for _ in range(n)], cuda)
+                      for _ in range(rows)])
+    x, y, inf = curve.affine_from_ints(group, [(px, py, False) for px, py in pts], cuda)
+    x, y = ff.from_field_last(x), ff.from_field_last(y)
+    digs = msm_gpu._window_digits(sc, inf, c).view(-1, n)
+    parts = msm_gpu._msm_body(spec, ops, digs, x, y, True, c, t_lanes)
+    folded = msm_gpu.fold_device(spec, ops, parts, c, rows)
+    w = msm_gpu.SCALAR_BITS // c
+    for b in range(rows):
+        host = msm_gpu._fold_host(group, ops, tuple(p[:, b * w : (b + 1) * w] for p in parts), c)
+        assert ops.to_host(spec, None, tuple(cc[:, b : b + 1] for cc in folded)) == [host]
+
+
+@pytest.mark.gpu
+def test_brakedown_encode_on_card_matches_plain(cuda):
+    """Brakedown's recursive encode at 12 variables (gathers and K1 on the
+    card) against the same encode on the CPU's plain versions, from one
+    seed's parameters and matrix."""
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng
+    from poly_commit_tpu_torch.pcs.linear_codes import brakedown as B
+
+    spec = FP.FR_BN254
+    outs = []
+    for device in (cuda, "cpu"):
+        rng = HostRng(12)
+        pp = B.default_params(spec, rng, 1 << 12, True, device=device)
+        mat = F.from_ints(spec, rng.field_ints(spec, 1 << 12), device=device).view(pp.n, pp.m, -1)
+        outs.append(ff.limbs_to_ints(spec, B.MultilinearBrakedownCode(spec).encode_rows(mat, pp)
+                                     .reshape(-1, spec.n_limbs).cpu().numpy()))
+    assert pp.a_dims and outs[0] == outs[1]
+
+
+def _hyrax_round_trip(device, nv=8):
+    """Hyrax at nv variables, one hiding polynomial: the row commitments,
+    the proof and the verdict."""
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.hyrax import HyraxPC as PC
+
+    rng = HostRng(8)
+    ck, vk = PC.trim(PC.setup(0, num_vars=nv, rng=rng, device=device))
+    lp = LabeledPolynomial("p", F.from_ints(PC.spec, rng.field_ints(PC.spec, 1 << nv), device=device),
+                           hiding_bound=1, num_vars=nv)
+    comms, states = PC.commit(ck, [lp], rng)
+    point = tuple(rng.field_int(PC.spec) for _ in range(nv))
+    qs = {("p", ("pt", point))}
+    proofs, values = PC.batch_open(ck, [lp], comms, qs, PoseidonSponge(PC.spec), states, rng)
+    ok = PC.batch_check(vk, comms, qs, values, proofs, PoseidonSponge(PC.spec))
+    pf = proofs[0][0]
+    return (comms[0].commitment.row_coms, (pf.com_eval, pf.com_d, pf.com_b, pf.z, pf.z_d, pf.z_b),
+            values, bool(ok))
+
+
+@pytest.mark.gpu
+def test_hyrax_round_trip_on_card_matches_cpu(cuda):
+    before = ec_lf.madd_scan.launches
+    got = _hyrax_round_trip(cuda)
+    assert ec_lf.madd_scan.launches > before
+    assert got == _hyrax_round_trip("cpu") and got[3] is True

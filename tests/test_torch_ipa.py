@@ -7,8 +7,10 @@ HostRng seed and one Poseidon transcript, so the commitments, every
 proof's l_vec, r_vec, final_comm_key and c, the opened values and the
 verdicts must be equal, with tolerance 0. The port runs its kernels' plain
 versions (K2b, K3, K1); the JAX package its CPU routes. Also: the
-generators, a corrupted value, and a JAX key carried across by
-``convert.ipa_params_from_jax``.
+generators, a corrupted value, a JAX key carried across by
+``convert.ipa_params_from_jax``, and the linear-combination methods
+(open_combinations -> check_combinations) on tests/test_ipa_pc.py's
+equation cases, with a tampered evaluation rejected.
 """
 
 import copy
@@ -148,3 +150,73 @@ def test_inner_product_matches_jax(n):
     got = tI._inner_product(tF.from_ints(spec, a, device="cpu"), tF.from_ints(spec, b, device="cpu"))
     want = jF.to_ints(jI.SPEC, jI._inner_product(jF.from_ints(jI.SPEC, a), jF.from_ints(jI.SPEC, b)))
     assert got == want == sum(x * y for x, y in zip(a, b)) % spec.modulus
+
+
+EQUATIONS = {
+    "single_equation": dict(num_polys=2, num_equations=1),
+    "two_equation_degree_bound": dict(num_polys=2, num_equations=2, degree_bounds=[4, None]),
+}
+
+
+def _equation_round_trip(pkg, num_polys, num_equations, degree_bounds=None, seed=11):
+    """harness.run_equation_template's steps (one point, hiding) on the
+    cached setup (IPA-PC's setup draws nothing): returns the proofs, the
+    verdict, and the verdict on an evaluation less one."""
+    PC = pkg.I.InnerProductArgPC
+    p = PC.spec.modulus
+    rng = pkg.DS.HostRng(seed)
+    hb = 2  # num_points + 1
+    bounds = degree_bounds or [None] * num_polys
+    enforced = sorted({b for b in bounds if b is not None}) or None
+    ck, vk = PC.trim(_setup("jax" if pkg is JAX else "port"), SIZES["supported_degree"], hb, enforced)
+    polys = []
+    for i, bound in enumerate(bounds):
+        degree = SIZES["supported_degree"] if bound is None else bound
+        ints = rng.field_ints(PC.spec, degree + 1)
+        if ints[-1] == 0:
+            ints[-1] = 1
+        polys.append(pkg.DS.LabeledPolynomial(
+            label=f"poly_{i}", poly=pkg.F.from_ints(PC.spec, ints, **pkg.dev),
+            degree_bound=bound, hiding_bound=hb))
+    comms, states = PC.commit(ck, polys, rng)
+    lcs = []
+    for e in range(num_equations):
+        i = e % num_polys
+        if polys[i].degree_bound is not None:
+            terms = [(1, polys[i].label)]
+        else:
+            terms = [(rng.field_int(PC.spec), polys[i].label)]
+            j = (e + 1) % num_polys
+            if polys[j].degree_bound is None and j != i:
+                terms.append((rng.field_int(PC.spec), polys[j].label))
+            terms.append((rng.field_int(PC.spec), "one"))
+        lcs.append(pkg.DS.LinearCombination(label=f"lc_{e}", terms=terms))
+    point = rng.field_int(PC.spec)
+    query_set = {(lc.label, ("pt_0", point)) for lc in lcs}
+    by_label = {lp.label: lp for lp in polys}
+    evals = {}
+    for lc in lcs:
+        acc = 0
+        for coeff, term in lc.terms:
+            v = 1 if term == "one" else PC.evaluate_poly(by_label[term], point)
+            acc = (acc + coeff * v) % p
+        evals[(lc.label, point)] = acc
+    proof_and_evals = PC.open_combinations(ck, lcs, polys, comms, query_set,
+                                           pkg.T.PoseidonSponge(PC.spec), states, rng)
+
+    def check(values):
+        return bool(PC.check_combinations(vk, lcs, comms, query_set, values, proof_and_evals,
+                                          pkg.T.PoseidonSponge(PC.spec)))
+
+    first = sorted(evals)[0]
+    return proof_and_evals[0], check(evals), check({**evals, first: (evals[first] - 1) % p})
+
+
+@pytest.mark.parametrize("case", list(EQUATIONS))
+def test_combinations_match_jax(case):
+    j_proofs, j_ok, j_bad = _equation_round_trip(JAX, **EQUATIONS[case])
+    t_proofs, t_ok, t_bad = _equation_round_trip(PORT, **EQUATIONS[case])
+    assert _proofs(types.SimpleNamespace(proofs=t_proofs)) == _proofs(
+        types.SimpleNamespace(proofs=j_proofs))
+    assert t_ok is True and j_ok is True
+    assert t_bad is False and j_bad is False

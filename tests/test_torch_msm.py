@@ -4,7 +4,10 @@ against the JAX package's core/msm.py on the CPU (which routes these sizes
 to its host big-int engine) and an independent host model.
 
 The port runs its own Pippenger path at every size, with its CPU window
-(c = 4, T = 16 lanes); results are compared as affine points.
+(c = 4, T = 16 lanes); results are compared as affine points. The batched
+MSM over shared bases (msm_rows, BN254 G1, Hyrax's row commitments) is held
+against per-row MSMs of the JAX package and the host, and its device window
+fold against the host fold.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between file
 GROUPS = {
     "bls12_381": (curve.BLS12_381_G1, jcurve.BLS12_381_G1),
     "bls12_377": (curve.BLS12_377_G1, jcurve.BLS12_377_G1),
+    "bn254": (curve.BN254_G1, jcurve.BN254_G1),
 }
 
 
@@ -135,3 +139,76 @@ def test_batch_inversion_and_normalisation():
     got = [(a, b) for a, b in zip(ff.to_ints(spec, x), ff.to_ints(spec, y))]
     assert [g for g, t in zip(got, triples) if not t[2]] == [(t[0], t[1]) for t in triples if not t[2]]
 
+
+
+def _rows_case(n, rows, seed, repeat=False):
+    """``rows`` rows of scalars over _case's n BN254 points; row 1 all zero."""
+    tg, _ = GROUPS["bn254"]
+    triples, _, _ = _case("bn254", n, seed, repeat)
+    rng = np.random.default_rng(seed + 1)
+    r = tg.scalar_spec.modulus
+    scal = [[int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)] for _ in range(rows)]
+    scal[1] = [0] * n
+    return triples, scal
+
+
+def _rows_vs_jax(n, rows, seed, distinct):
+    tg, jg = GROUPS["bn254"]
+    triples, scal = _rows_case(n, rows, seed, repeat=not distinct)
+    sc = torch.stack([msm.scalars_from_ints(tg.scalar_spec, row, device="cpu") for row in scal])
+    out = msm.msm_rows(tg, sc, curve.affine_from_ints(tg, triples, device="cpu"), assume_distinct=distinct)
+    got = [hostec.device_proj_to_host(tg, tuple(c[b] for c in out)) for b in range(rows)]
+    jpts = jcurve.affine_from_ints(jg, triples)
+    want = [jhostec.device_proj_to_host(jg, jmsm.msm(jg, jmsm.scalars_from_ints(jg.scalar_spec, row), jpts,
+                                                     assume_distinct=distinct)) for row in scal]
+    return got, want
+
+
+@pytest.mark.parametrize("distinct", [True, False])
+def test_msm_rows_matches_per_row_msms(distinct):
+    """Three rows of 140 points (padded to 256: T = 2 lanes of 128 steps),
+    one point at infinity, row 1 all zero; with repeated bases for the
+    complete formulas: each row equals the JAX package's MSM and the
+    host's."""
+    got, want = _rows_vs_jax(140, 3, seed=21, distinct=distinct)
+    assert got == want and got[1] is None
+    tg, _ = GROUPS["bn254"]
+    triples, scal = _rows_case(140, 3, seed=21, repeat=not distinct)
+    hg = hostec.host_group(tg)
+    pts = [None if t[2] else (t[0], t[1]) for t in triples]
+    assert got[0] == hg.msm_fast(scal[0], pts)
+
+
+def test_msm_rows_card_window(monkeypatch):
+    """The card's window (c = 8) through the plain versions: two rows of
+    64 points in 4 lanes of 16 steps, equal to the JAX package's MSMs."""
+    monkeypatch.setattr(msm_gpu, "rows_params", lambda device, n: (8, 4))
+    got, want = _rows_vs_jax(64, 2, seed=22, distinct=True)
+    assert got == want
+
+
+def test_rows_params_give_lanes_of_many_steps():
+    cuda = torch.device("cuda")
+    assert msm_gpu.rows_params(cuda, 1 << 11) == (8, 16)  # Hyrax at 22 variables
+    assert msm_gpu.rows_params(cuda, 128) == (4, 1)
+    assert msm_gpu.rows_params(torch.device("cpu"), 512) == (4, 4)
+
+
+def test_fold_device_matches_fold_host():
+    """The batched device fold of two rows' window sums equals the host
+    fold (_fold_host) of each row's own windows."""
+    tg, _ = GROUPS["bn254"]
+    spec, ops, c, t_lanes = tg.spec, msm_gpu.JACOBIAN_OPS, 4, 2
+    triples, scal = _rows_case(16, 2, seed=23)
+    scal[1][3] = 5  # a row with one small term
+    pts = curve.affine_from_ints(tg, triples, device="cpu")
+    x, y = (ff.from_field_last(a) for a in pts[:2])
+    sc = torch.stack([msm.scalars_from_ints(tg.scalar_spec, row, device="cpu") for row in scal])
+    digs = msm_gpu._window_digits(sc, pts[2], c).view(-1, 16)
+    parts = msm_gpu._msm_body(spec, ops, digs, x, y, True, c, t_lanes)
+    folded = msm_gpu.fold_device(spec, ops, parts, c, 2)
+    w = msm_gpu.SCALAR_BITS // c
+    for b in range(2):
+        row_parts = tuple(p[:, b * w : (b + 1) * w] for p in parts)
+        host = msm_gpu._fold_host(tg, ops, row_parts, c)
+        assert ops.to_host(spec, None, tuple(cc[:, b : b + 1] for cc in folded)) == [host]
