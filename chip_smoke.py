@@ -9,19 +9,21 @@ Phases, one JSON line each (times in ms):
      (one nvcc per source, all at once);
   2. every kernel against its plain PyTorch version on the same inputs on
      the card, exactly (K1 ff mul/add/sub on the BLS12-381 base and scalar
-     fields, the BN254 scalar and base fields and the BLS12-377 base field
-     at 2^20 columns, and at 2^10 and 1 (also from a CUDA graph, without the
-     wrapper's host work); K1's power, the Fermat chain of every batched
-     inversion, on the BLS12-381 base and scalar fields and the BN254 base
-     field at 1 and 2^12 columns; K1's batched inversion at 2^20 columns of
-     Fq-381, 2^15 of Fr-381 and 2^11 of Fq-254 (its launches: the tree's
+     fields, the BN254 scalar and base fields and the BLS12-377 base and
+     scalar fields at 2^20 columns, and at 2^10 and 1 (also from a CUDA
+     graph, without the wrapper's host work); K1's power, the Fermat chain
+     of every batched inversion, on the BLS12-381 base and scalar fields,
+     the BN254 base field and the BLS12-377 base field at 1 and 2^12
+     columns; K1's batched inversion at 2^20 columns of Fq-381, 2^15 of
+     Fr-381, 2^11 of Fq-254 and 2^8 of Fq-377 (its launches: the tree's
      levels and one power) and its field sum at 2^16 of Fr-JubJub, each
      beside the loop of K1 launches it replaced; K2a the six G1 formulas
-     on the BLS12-381 and BN254 base fields and madd_scan, the MSM's
-     within-lane scan in one launch, bit for bit at the 2^20 MSM's 256
-     steps x 2^16 lanes and at a chunk of Hyrax's batched MSM, 128 steps x
-     2^18 lanes over 2^11 BN254 points (the complete madd's edge lanes at
-     16 steps), timed beside the loop of launches it replaced; K3,
+     on the BLS12-381, BN254 and BLS12-377 base fields and madd_scan, the
+     MSM's within-lane scan in one launch, bit for bit at the 2^20 MSM's
+     256 steps x 2^16 lanes, at a chunk of Hyrax's batched MSM, 128 steps
+     x 2^18 lanes over 2^11 BN254 points, and at 16 steps x 2^10 lanes
+     over 64 BLS12-377 points (the complete madd's edge lanes at 16
+     steps), timed beside the loop of launches it replaced; K3,
      the stable digit sort, index for index at the 2^20 MSM's (16, 2^20)
      keys, the c = 8 MSMs' (32, 2^15) and a chunk of Hyrax's batched MSM
      (2^14, 2^11); K4a/K4b/K4c the NTT stages on the
@@ -84,7 +86,27 @@ Phases, one JSON line each (times in ms):
      MSM folds on the card) and commit's launches; then commit again with
      its batched MSM's parts timed apart (sort, scan, trees and gathers,
      device fold, fixed-base, normalisations), once under torch.profiler,
-     and msm_rows on one chunk of rows at 16 to 256 lanes a window.
+     and msm_rows on one chunk of rows at 16 to 256 lanes a window;
+ 12. pst13: MarlinPST13 over BLS12-381 at 10 variables and degree 12
+     (646,646 SRS points), setup -> trim -> commit two dense polynomials
+     over every monomial (one hiding) -> batch_open at one point ->
+     batch_check, the values against the coefficients dotted with the
+     monomial values at the point, a value plus one rejected, setup's and
+     open's host parts timed apart (monomial enumeration, SRS scalar
+     values, int-to-limb conversions, divide_at_point, evaluations); then a
+     MarlinPST13_BLS12_377 round trip at 3 variables, degree 4;
+ 13. streaming_kzg: streaming KZG (Gemini) over BLS12-381 at degree
+     2^20 - 1, three points (beta, -beta, beta^2), chunks of 2^16 and 16
+     folds: the time prover (commit two polynomials, open,
+     open_multi_points, batch_open_multi_points, commit_folding), the space
+     prover (commit_chunked, open_chunked, open_multi_points_chunked,
+     open_folding_chunked) and both verifiers on true and tampered values;
+     every chunked group element against the time prover's, every
+     remainder against long_divide's, the folding proof against the
+     commitment of sum_j eta_j (f^(j) div Z), the last fold's commitment
+     against a host fold and host MSM; each stage's K1 and K4 launches, and
+     long_divide and the chunked opens under 0.1 K1 launches a
+     coefficient.
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -94,11 +116,11 @@ and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
 ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
-Phases 4-11 and ark_golden are the paths: each runs with every launch count
+Phases 4-13 and ark_golden are the paths: each runs with every launch count
 set to 0 just before it and read just after; the kernel table sums them.
 Each path's line also splits K1's launches by columns (1, under 2^16,
 2^16 and up), and a k1_launches line sums that split over phases 4-8
-(without the bounded run, phase 8's equation, phases 9-11 and ark_golden,
+(without the bounded run, phase 8's equation, phases 9-13 and ark_golden,
 so that it stays comparable with earlier runs). K1 and K2a count their
 launches by field: their kernel-table entries are per field.
 A k4c_launches line sums K4c's launches over phases 4-8 (at most 20 with
@@ -128,6 +150,11 @@ IPA_LOG_DEGREE = 16  # IPA-PC at degree 2^16 - 1: host hash-to-curve bounds setu
 SIDE_MSM_LOG_N = 10  # the G2 and JubJub MSMs of phase 3 (host oracle cost)
 BRAKEDOWN_NUM_VARS = 22  # the top of the reference's Brakedown bench
 HYRAX_NUM_VARS = 22  # the top of the reference's Hyrax bench: 2048 rows of 2048
+PST13_NUM_VARS = 10  # the reference's own PST13 tests
+PST13_DEGREE = 12  # C(22, 12) = 646,646 SRS points, ~2^19.3: the KZG paths' scale
+STREAM_POINTS = 3  # Gemini's beta, -beta, beta^2
+STREAM_CHUNK = 1 << 16
+STREAM_DEPTH = 16  # the most folds a 2^16 chunk admits
 IMAD_PER_PRODUCT = 4 * 8 * 8 + 8  # CIOS on 8 32-bit words
 IMAD_PER_FQ_PRODUCT = 4 * 12 * 12 + 12  # CIOS on 12 32-bit words
 
@@ -493,10 +520,10 @@ class Smoke:
         # the main path's shape: 2^20 lanes of the scalar field (the prover's
         # polynomial work) and of the base field (the SRS normalisation);
         # BN254's scalar field is Ligero's and Brakedown's, its base field
-        # Hyrax's (normalisation, negation), JubJub's IPA-PC's. BLS12-377's
-        # base field runs the same 12-word build as BLS12-381's.
+        # Hyrax's (normalisation, negation), JubJub's IPA-PC's; BLS12-377's
+        # fields are MarlinPST13_BLS12_377's (phase 12).
         for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FR_BN254, FP.FR_JUBJUB, FP.FQ_BN254,
-                     FP.FQ_BLS12_377):
+                     FP.FQ_BLS12_377, FP.FR_BLS12_377):
             n = 1 << 20
             a, b = self.rand_field(spec, n), self.rand_field(spec, n)
             a = ff.plain("add", spec, a, b)  # values up to 2p: the lazy range
@@ -510,9 +537,6 @@ class Smoke:
                 name = f"ff_{fn.__name__}[{spec.name}]"
                 line = {"phase": "kernels", "kernel": name, "n": n, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms}
-                if spec is FP.FQ_BLS12_377:  # not on the main path: no table entry
-                    emit(line)
-                    continue
                 line["device_ms"] = graph_ms(lambda: fn(spec, a, b), 20)
                 n_bytes, n_imad = self.ff_work(spec, op, n)
                 emit({**line, **self.entry(name, "ff", err, ms, plain_ms, n_bytes, n_imad)})
@@ -569,8 +593,9 @@ class Smoke:
     def check_ff_pow(self):
         """K1's power kernel against its plain version, limb for limb, on
         the Fermat exponent p - 2 of the fields whose inversions the paths
-        run (Fq-381: G1 and Fq2 normalisation; Fr-381: JubJub; Fq-254:
-        Hyrax's BN254 G1), at
+        run (Fq-381: G1 and Fq2 normalisation; Fr-381: JubJub, the streaming
+        KZG divisions; Fq-254: Hyrax's BN254 G1; Fq-377: MarlinPST13_BLS12_377's
+        G1), at
         the paths' one column (the table entry) and at 2^12, timed beside
         the chain of mul launches it replaced (``chain_ms``, equal limb for
         limb)."""
@@ -578,7 +603,7 @@ class Smoke:
         from poly_commit_tpu_torch.core import field_params as FP
 
         ok = True
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BN254):
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BN254, FP.FQ_BLS12_377):
             e = spec.modulus - 2
             products = e.bit_length() + bin(e).count("1")
             nw = spec.n_limbs // 2
@@ -609,8 +634,10 @@ class Smoke:
 
     MAX_INV_LAUNCHES = 6  # a batched inversion of 2^20 columns: its tree's levels and one power
     # setup's normalisation (2^20 G1 points), IPA-PC's first key fold
-    # (2^15 JubJub points) and Hyrax's row commitments (2^11 BN254 points)
-    INV_COLUMNS = {"fq_bls12_381": 1 << 20, "fr_bls12_381": 1 << 15, "fq_bn254": 1 << 11}
+    # (2^15 JubJub points), Hyrax's row commitments (2^11 BN254 points) and
+    # MarlinPST13_BLS12_377's setup at nv 3, degree 4 (256 doublings)
+    INV_COLUMNS = {"fq_bls12_381": 1 << 20, "fr_bls12_381": 1 << 15, "fq_bn254": 1 << 11,
+                   "fq_bls12_377": 1 << 8}
 
     @staticmethod
     def tree_loop(spec, a):
@@ -651,7 +678,7 @@ class Smoke:
 
         torch = self.torch
         ok = True
-        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BN254):
+        for spec in (FP.FQ_BLS12_381, FP.FR_BLS12_381, FP.FQ_BN254, FP.FQ_BLS12_377):
             m = self.INV_COLUMNS[spec.name]
             x = self.lazy(spec, m)
             x[:, 0] = 0
@@ -760,15 +787,18 @@ class Smoke:
     # points): the 2^20 MSM's 256 steps x 2^16 lanes (BLS12-381), and a
     # chunk of Hyrax's batched MSM at 22 variables, 512 rows x 32 windows x
     # 16 lanes of 128 steps over 2^11 points (BN254)
-    SCAN_SHAPES = {"fq_bls12_381": (256, 1 << 16, 1 << 20), "fq_bn254": (128, 1 << 18, 1 << 11)}
+    SCAN_SHAPES = {"fq_bls12_381": (256, 1 << 16, 1 << 20), "fq_bn254": (128, 1 << 18, 1 << 11),
+                   # MarlinPST13_BLS12_377 at nv 3, degree 4: 64 windows x 16 lanes
+                   # over at most 35 points
+                   "fq_bls12_377": (16, 1 << 10, 1 << 6)}
 
     def check_ec(self):
-        """K2a's formulas on the BLS12-381 and BN254 base fields, and
-        madd_scan at each one's path shape."""
+        """K2a's formulas on the BLS12-381, BN254 and BLS12-377 base fields,
+        and madd_scan at each one's path shape."""
         from poly_commit_tpu_torch.core import curve
 
         ok = True
-        for group in (curve.BLS12_381_G1, curve.BN254_G1):
+        for group in (curve.BLS12_381_G1, curve.BN254_G1, curve.BLS12_377_G1):
             ok &= self.check_ec_formulas(group)
             ok &= self.check_ec_scan(group.spec, *self.SCAN_SHAPES[group.spec.name])
         return ok
@@ -2095,6 +2125,252 @@ class Smoke:
         return (bool(ok) and all(tampered.values()) and value_ok and all_launched
                 and host_folds == 0 and lanes_equal)
 
+    # -- phase 12 ---------------------------------------------------------
+    def pst13_path(self):
+        """MarlinPST13 over BLS12-381 at PST13_NUM_VARS variables and degree
+        PST13_DEGREE (an SRS of C(nv + d, d) G1 points): setup, trim with
+        hiding bound 1, commit two dense polynomials over every monomial
+        (the second hiding), batch_open both at one point, batch_check; the
+        values against the coefficients dotted with the monomial values at
+        the point, a value plus one rejected; setup's and open's host parts
+        timed apart. Then a MarlinPST13_BLS12_377 round trip at nv 3, degree
+        4, with its own launch counts."""
+        import numpy as np
+
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import pst13
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+
+        torch = self.torch
+        PC, M = pst13.MarlinPST13, pst13.M
+        spec, r = PC.spec, PC.spec.modulus
+        nv, degree = PST13_NUM_VARS, PST13_DEGREE
+        rng = HostRng(12)
+        stages = {}
+
+        def stage(name, fn):
+            return timed(stages, name, fn)
+
+        def host_split(parts, total):
+            """Each part's ms, the rest, and the host share: the stage's
+            time outside its fixed-base multiplications and MSMs."""
+            out = {f"{k}_ms": ms for k, (ms, _) in parts.items()}
+            out["rest_ms"] = total - sum(out.values())
+            device = sum(out.get(k, 0.0) for k in ("fixed_base_mul_ms", "msm_ms"))
+            out["host_share"] = (total - device) / total
+            return out
+
+        hosted = [(pst13, "_all_monomials"), (pst13, "_monomial_values"), (M, "scalars_from_ints"),
+                  (pst13, "divide_at_point"), (pst13.MVPoly, "evaluate"), (M, "fixed_base_mul"),
+                  (M, "msm")]
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with spans(hosted) as parts:
+            pp = stage("setup", lambda: PC.setup(degree, num_vars=nv, rng=rng, device=self.dev))
+        setup_split = host_split(parts, stages["setup"])
+        ck, vk = stage("trim", lambda: PC.trim(pp, degree, 1))
+        monomials = pst13._all_monomials(nv, degree)
+        gen = np.random.default_rng(12)
+        coeffs = []
+        for _ in range(2):
+            raw = gen.bytes(40 * len(monomials))
+            coeffs.append([int.from_bytes(raw[i : i + 40], "little") % r
+                           for i in range(0, len(raw), 40)])
+        polys = [LabeledPolynomial(f"p{i}", pst13.MVPoly(nv, dict(zip(monomials, c))),
+                                   hiding_bound=1 if i else None, num_vars=nv)
+                 for i, c in enumerate(coeffs)]
+        comms, states = stage("commit", lambda: PC.commit(ck, polys, rng))
+        point = tuple(rng.field_int(spec) for _ in range(nv))
+        query_set = {(lp.label, ("z", point)) for lp in polys}
+        with spans(hosted) as parts:
+            proofs, values = stage("open", lambda: PC.batch_open(
+                ck, polys, comms, query_set, PoseidonSponge(spec), states, rng))
+        open_split = host_split(parts, stages["open"])
+        ok = stage("check", lambda: PC.batch_check(vk, comms, query_set, values, proofs,
+                                                   PoseidonSponge(spec)))
+        first = sorted(values)[0]
+        bad = {**values, first: (values[first] + 1) % r}
+        rejected = not stage("check_tampered", lambda: PC.batch_check(
+            vk, comms, query_set, bad, proofs, PoseidonSponge(spec)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field, ff_by_size = self.read_counts(in_sums=False)
+        # the values: the coefficients dotted with the monomial values at the
+        # point (setup's incremental products), not MVPoly.evaluate's tables
+        at = pst13._monomial_values(list(point), degree, r)
+        values_ok = all(values[(lp.label, point)] == sum(a * b for a, b in zip(c, at)) % r
+                        for lp, c in zip(polys, coeffs))
+        needed = list(self.MAIN_PATH_EC) + ["digit_sort", "ec_g2_madd", "ec_g2_madd_distinct",
+                                            "ec_g2_double", "ff_mont_mul[fq_bls12_381]",
+                                            "ff_pow[fq_bls12_381]", "ff_batch_inv[fq_bls12_381]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        scanned = launches["ec_madd_distinct_packed"] <= self.MAX_PACKED_MADD_LAUNCHES
+        del polys, coeffs, states
+
+        # MarlinPST13_BLS12_377: a small round trip, its launches apart
+        PC7 = pst13.MarlinPST13_BLS12_377
+        spec7 = PC7.spec
+        self.reset_counts()
+        rng7 = HostRng(13)
+        small = {}
+        pp7 = timed(small, "setup", lambda: PC7.setup(4, num_vars=3, rng=rng7, device=self.dev))
+        ck7, vk7 = PC7.trim(pp7, 4, 1)
+        polys7 = [LabeledPolynomial(f"q{i}", pst13.MVPoly.rand(rng7, 3, 4, num_terms=12, spec=spec7),
+                                    hiding_bound=1, num_vars=3) for i in range(2)]
+        comms7, states7 = timed(small, "commit", lambda: PC7.commit(ck7, polys7, rng7))
+        pt7 = tuple(rng7.field_int(spec7) for _ in range(3))
+        qs7 = {(lp.label, ("z", pt7)) for lp in polys7}
+        proofs7, values7 = timed(small, "open", lambda: PC7.batch_open(
+            ck7, polys7, comms7, qs7, PoseidonSponge(spec7), states7, rng7))
+        ok7 = timed(small, "check", lambda: PC7.batch_check(vk7, comms7, qs7, values7, proofs7,
+                                                            PoseidonSponge(spec7)))
+        k7 = sorted(values7)[0]
+        bad7 = {**values7, k7: (values7[k7] + 1) % spec7.modulus}
+        rejected7 = not PC7.batch_check(vk7, comms7, qs7, bad7, proofs7, PoseidonSponge(spec7))
+        launches7, by_field7, _ = self.read_counts(in_sums=False)
+        needed7 = [f"{k}[fq_bls12_377]" for k in self.MAIN_PATH_EC] + ["digit_sort"]
+        all_launched7 = self.all_launched(launches7, by_field7, needed7)
+        emit({"phase": "pst13", "scheme": "MarlinPST13/BLS12-381", "num_vars": nv,
+              "degree": degree, "srs_points": len(monomials), "hiding_bound": 1, "points": 1,
+              "stage_ms": stages, "setup_split_ms": setup_split, "open_split_ms": open_split,
+              "check": bool(ok), "tampered_rejected": rejected, "values_match_host": values_ok,
+              "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched, "msms_scanned_in_one_launch": scanned,
+              "peak_mem_gb": peak_gb,
+              "bls12_377": {"num_vars": 3, "degree": 4, "stage_ms": small, "check": bool(ok7),
+                            "tampered_rejected": rejected7, "launches_by_field": by_field7,
+                            "all_kernels_launched": all_launched7}})
+        return (bool(ok) and rejected and values_ok and all_launched and scanned and bool(ok7)
+                and rejected7 and all_launched7)
+
+    # -- phase 13 ---------------------------------------------------------
+    MAX_K1_PER_COEFFICIENT = 0.1  # the streaming divisions run in log depth
+
+    def streaming_path(self):
+        """Streaming KZG (Gemini) over BLS12-381 at degree 2^LOG_DEGREE - 1
+        with STREAM_POINTS points (beta, -beta, beta^2), chunks of
+        STREAM_CHUNK and STREAM_DEPTH folds: the key; the time prover's
+        commit of two polynomials, open, open_multi_points,
+        batch_open_multi_points and commit_folding; the space prover's
+        commit_chunked, open_chunked, open_multi_points_chunked and
+        open_folding_chunked; verify and verify_multi_points, each also on
+        a value plus one. Every chunked group element against the time
+        prover's, every remainder against long_divide's, the folding proof
+        against the commitment of sum_j eta_j (f^(j) div Z), the single
+        value against host Horner. Each stage's K1 and K4 launches apart;
+        long_divide and the chunked opens fail at MAX_K1_PER_COEFFICIENT K1
+        launches a coefficient or more."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core import hostec, ntt_lf
+        from poly_commit_tpu_torch.core import poly as P
+        from poly_commit_tpu_torch.pcs import kzg10
+        from poly_commit_tpu_torch.pcs import streaming_kzg as SK
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng
+
+        torch = self.torch
+        spec, r = SK.SPEC, SK.SPEC.modulus
+        degree = (1 << LOG_DEGREE) - 1
+        n, chunk, depth = degree + 1, STREAM_CHUNK, STREAM_DEPTH
+        rng = HostRng(14)
+        stages, split = {}, {}
+
+        def k_counts():
+            return (sum(w.launches for w in self.ff_wrappers.values()),
+                    sum(w.launches for w in ntt_lf.WRAPPERS))
+
+        def stage(name, fn):
+            k1, k4 = k_counts()
+            out = timed(stages, name, fn)
+            k1b, k4b = k_counts()
+            split[name] = {"k1": k1b - k1, "k4": k4b - k4}
+            return out
+
+        f, f2 = (self.rand_field(spec, n).T.contiguous() for _ in range(2))  # (n, L) Montgomery
+        self.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ck = stage("setup", lambda: SK.CommitterKey.new(degree, STREAM_POINTS, rng, device=self.dev))
+        vk = ck.verifier_key()
+        beta = rng.field_int(spec)
+        pts = [beta, r - beta, beta * beta % r]
+        chal = rng.field_int(spec)
+        rhos = [rng.field_int(spec) for _ in range(depth)]
+        etas = SK._powers_int(rng.field_int(spec), depth)
+        comm = stage("commit", lambda: ck.commit(f))
+        comm2 = stage("commit_2", lambda: ck.commit(f2))
+        value, proof = stage("open", lambda: ck.open(f, beta))
+        multi = stage("open_multi_points", lambda: ck.open_multi_points(f, pts))
+        batch = stage("batch_open_multi_points", lambda: ck.batch_open_multi_points([f, f2], pts, chal))
+        folded = stage("commit_folding", lambda: ck.commit_folding(f, rhos))
+        c_chunked = stage("commit_chunked", lambda: ck.commit_chunked(f, chunk))
+        v_chunked, p_chunked = stage("open_chunked", lambda: ck.open_chunked(f, beta, chunk))
+        rem_chunked, m_chunked = stage("open_multi_points_chunked",
+                                       lambda: ck.open_multi_points_chunked(f, pts, chunk))
+        rems_fold, p_fold = stage("open_folding_chunked",
+                                  lambda: ck.open_folding_chunked(f, rhos, pts, etas, chunk))
+        zpoly = P.vanishing_poly(spec, F.from_ints(spec, pts, device=self.dev))
+        _, rem_time = stage("long_divide", lambda: P.long_divide(spec, f, zpoly))
+        # the values at the points: device evaluations of each polynomial
+        evals = [[int(F.to_ints(spec, P.evaluate(spec, g, F.from_ints(spec, z, device=self.dev))))
+                  for z in pts] for g in (f, f2)]
+        ok1 = stage("verify", lambda: SK.verify(vk, comm, beta, value, proof))
+        bad1 = not stage("verify_tampered", lambda: SK.verify(vk, comm, beta, (value + 1) % r, proof))
+        okm = stage("verify_multi_points", lambda: SK.verify_multi_points(
+            vk, [comm, comm2], pts, evals, batch, chal))
+        bad_evals = [[(evals[0][0] + 1) % r] + evals[0][1:], evals[1]]
+        badm = not stage("verify_multi_points_tampered", lambda: SK.verify_multi_points(
+            vk, [comm, comm2], pts, bad_evals, batch, chal))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_field, ff_by_size = self.read_counts(in_sums=False)
+
+        # the reference's time/space contract, and the folding proof
+        # against the time prover: commit(sum_j eta_j (f^(j) div Z)); the
+        # last fold's commitment against a host fold and a host MSM
+        ints = F.to_ints(spec, f)
+        last = ints
+        for rho in rhos:
+            last = [(a + rho * b) % r for a, b in zip(last[0::2], last[1::2])]
+        hg1 = hostec.host_group(SK.G1)
+        bases = [hostec.triple_to_host(t) for t in kzg10.affine_at(SK.G1, ck.powers_of_g,
+                                                                    range(len(last)))]
+        last_fold_commit = hostec.host_to_triple(hg1.msm_fast(last, bases))
+        value_ok = value == horner(ints, beta, r) and evals[0][0] == value
+        comb, fold_rems_ok = None, True
+        for fj, eta, rem in zip(ck.fold_polynomials(f, rhos), etas, rems_fold):
+            q, rj = P.long_divide(spec, fj, zpoly)
+            fold_rems_ok &= F.to_ints(spec, rem) == F.to_ints(spec, rj)
+            scaled = P.scale(spec, q, F.from_ints(spec, eta, device=self.dev))
+            comb = scaled if comb is None else P.add(spec, comb, scaled)
+        contract = {
+            "commit_chunked": c_chunked.point == comm.point,
+            "open_chunked": v_chunked == value and p_chunked.point == proof.point,
+            "open_multi_points_chunked": m_chunked.point == multi.point,
+            "remainder": F.to_ints(spec, rem_chunked) == F.to_ints(spec, rem_time),
+            "open_folding_chunked": p_fold.point == ck.commit(comb).point,
+            "folding_remainders": fold_rems_ok,
+            "commit_folding": len(folded) == depth and folded[-1].point == last_fold_commit,
+        }
+        per_coefficient = {k: split[k]["k1"] / n for k in
+                           ("long_divide", "open_chunked", "open_multi_points_chunked",
+                            "open_folding_chunked")}
+        log_depth = all(v < self.MAX_K1_PER_COEFFICIENT for v in per_coefficient.values())
+        needed = list(self.MAIN_PATH_EC) + list(self.NTT_KERNELS) + [
+            "digit_sort", "ec_g2_madd", "ec_g2_madd_distinct", "ec_g2_double",
+            "ff_mont_mul[fq_bls12_381]", "ff_pow[fq_bls12_381]", "ff_batch_inv[fq_bls12_381]",
+            "ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]", "ff_sub[fr_bls12_381]",
+            "ff_pow[fr_bls12_381]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        scanned = launches["ec_madd_distinct_packed"] <= self.MAX_PACKED_MADD_LAUNCHES
+        emit({"phase": "streaming_kzg", "scheme": "StreamingKZG/BLS12-381", "degree": degree,
+              "points": STREAM_POINTS, "chunk": chunk, "depth": depth, "stage_ms": stages,
+              "stage_launches": split, "k1_launches_per_coefficient": per_coefficient,
+              "log_depth": log_depth, "verify": bool(ok1), "verify_tampered_rejected": bad1,
+              "verify_multi_points": bool(okm), "verify_multi_points_tampered_rejected": badm,
+              "value_matches_host": value_ok, "time_space_contract": contract,
+              "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
+              "all_kernels_launched": all_launched, "msms_scanned_in_one_launch": scanned,
+              "peak_mem_gb": peak_gb})
+        return (bool(ok1) and bad1 and bool(okm) and badm and value_ok and all(contract.values())
+                and log_depth and all_launched and scanned)
+
 
 def main() -> int:
     import torch
@@ -2121,7 +2397,8 @@ def main() -> int:
                    "ligero_ml": smoke.ligero_path("ml"), "ligero_uni": smoke.ligero_path("uni"),
                    "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path(),
                    "sonic": smoke.sonic_path(), "ark_golden": smoke.ark_golden(),
-                   "brakedown": smoke.brakedown_path(), "hyrax": smoke.hyrax_path()}
+                   "brakedown": smoke.brakedown_path(), "hyrax": smoke.hyrax_path(),
+                   "pst13": smoke.pst13_path(), "streaming_kzg": smoke.streaming_path()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
         k4c = smoke.k4c_launches

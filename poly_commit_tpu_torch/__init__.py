@@ -21,9 +21,13 @@ Ported so far (see ROADMAP.md):
                               and Poseidon test sponge) and the arkworks and
                               zcash point codecs of core.serialize
   pcs.linear_codes          — Ligero, univariate and multilinear, over the
-                              BLS12-381 and BN254 scalar fields
+                              BLS12-381 and BN254 scalar fields, and
+                              MultilinearBrakedown over BN254
   pcs.multilinear_pc        — MultilinearPC over BLS12-381 (G1 and G2)
   pcs.ipa_pc                — InnerProductArgPC over JubJub
+  pcs.hyrax                 — Hyrax over BN254
+  pcs.pst13                 — MarlinPST13 over BLS12-381 and BLS12-377
+  pcs.streaming_kzg         — streaming KZG (Gemini): time and space provers
   core.msm_gpu              — Pippenger MSM (G1, G2, JubJub) and fixed-base
                               multiplication (G1, G2)
   core.extfield             — Fq2 on the port's tensors

@@ -42,7 +42,7 @@ def domain(spec: FieldSpec, log_n: int) -> dict:
             "n_inv": pow(n, -1, p)}
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=64)  # both directions of each size to 2^21 (long_divide)
 def _stage_twiddles(spec: FieldSpec, log_n: int, inverse: bool, device: str) -> tuple:
     d = domain(spec, log_n)
     half_n = max(1, d["n"] // 2)

@@ -17,7 +17,11 @@ the port can open what the JAX package committed.
 Hyrax's universal parameters: device points keep their limbs (G2 as
 (N, 2, L) pairs), host points stay host ints. ``brakedown_params_from_jax``
 carries Brakedown's parameters with their sparse matrices, as row indices
-and value ints.
+and value ints. ``pst13_params_from_jax`` and ``streaming_key_from_jax``
+carry MarlinPST13's universal parameters (the G1 powers over every
+monomial with their limbs; the term index, gamma powers and G2 points as
+host values) and a streaming KZG committer key (G1 powers with their
+limbs, G2 powers as host triples).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from .. import device as D
 from ..core import ff
 from ..core import field_params as FP
-from . import hyrax, ipa_pc, kzg10, multilinear_pc
+from . import hyrax, ipa_pc, kzg10, multilinear_pc, pst13, streaming_kzg
 from .curve_ctx import CTX_BLS12_381, CurveCtx
 from .linear_codes.brakedown import BrakedownPCParams, SparseMat
 from .linear_codes.engine import LinCodePCCommitmentState
@@ -160,3 +164,23 @@ def brakedown_params_from_jax(p, device=None) -> BrakedownPCParams:
         start=list(p.start), end=list(p.end), a_mats=[mat(a) for a in p.a_mats],
         b_mats=[mat(b) for b in p.b_mats], check_well_formedness=bool(p.check_well_formedness),
         device=None if device is None else str(device))
+
+
+def pst13_params_from_jax(pp, device=None) -> pst13.UniversalParams:
+    """A JAX MarlinPST13 ``UniversalParams`` (read by attribute) -> the
+    port's: ``powers_of_g`` on the device with the same limbs; the term
+    index, gamma_g, the gamma powers, h and beta_h as host values."""
+    return pst13.UniversalParams(
+        num_vars=int(pp.num_vars), max_degree=int(pp.max_degree),
+        term_index={tuple(int(e) for e in t): int(i) for t, i in pp.term_index.items()},
+        powers_of_g=_affine(pp.powers_of_g, D.resolve(device)), gamma_g=_host(pp.gamma_g),
+        powers_of_gamma_g=[[_host(t) for t in row] for row in pp.powers_of_gamma_g],
+        h=_host(pp.h), beta_h=[_host(t) for t in pp.beta_h])
+
+
+def streaming_key_from_jax(ck, device=None) -> streaming_kzg.CommitterKey:
+    """A JAX streaming KZG ``CommitterKey`` (read by attribute) -> the
+    port's: the G1 powers on the device with the same limbs, the G2 powers
+    as host triples."""
+    return streaming_kzg.CommitterKey(powers_of_g=_affine(ck.powers_of_g, D.resolve(device)),
+                                      powers_of_g2=[_host(t) for t in ck.powers_of_g2])

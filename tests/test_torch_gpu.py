@@ -717,3 +717,82 @@ def test_hyrax_round_trip_on_card_matches_cpu(cuda):
     got = _hyrax_round_trip(cuda)
     assert ec_lf.madd_scan.launches > before
     assert got == _hyrax_round_trip("cpu") and got[3] is True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dn,dd", [(1 << 14, 4), (3000, 1), (37, 37)])
+def test_long_divide_on_card_matches_cpu(cuda, dn, dd):
+    """Newton's division (NTT products on K4, K1) on the card equals its CPU
+    run: the quotient and the remainder."""
+    from poly_commit_tpu_torch.core import poly as P
+
+    spec = FP.FR_BLS12_381
+    rnd = random.Random(dn + dd)
+    num = F.from_ints(spec, [rnd.randrange(spec.modulus) for _ in range(dn)], device="cpu")
+    den = F.from_ints(spec, [rnd.randrange(1, spec.modulus) for _ in range(dd)], device="cpu")
+    before = ntt_lf.fused_stages.launches + ntt_lf.small.launches
+    q, r = P.long_divide(spec, num.to(cuda), den.to(cuda))
+    assert ntt_lf.fused_stages.launches + ntt_lf.small.launches > before
+    wq, wr = P.long_divide(spec, num, den)
+    assert F.to_ints(spec, q) == F.to_ints(spec, wq)
+    assert r.shape[0] == dd - 1 and (dd == 1 or F.to_ints(spec, r) == F.to_ints(spec, wr))
+
+
+@pytest.mark.gpu
+def test_streaming_space_prover_on_card_matches_time_prover(cuda):
+    """Streaming KZG at 2^14 coefficients, chunks of 2^10, three points and
+    four folds: every chunked group element and remainder on the card
+    equals the time prover's."""
+    from poly_commit_tpu_torch.core import poly as P
+    from poly_commit_tpu_torch.pcs import streaming_kzg as SK
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng
+
+    spec, n, chunk = SK.SPEC, 1 << 14, 1 << 10
+    rng = HostRng(21)
+    ck = SK.CommitterKey.new(n - 1, 3, rng, device=cuda)
+    f = F.from_ints(spec, rng.field_ints(spec, n), device=cuda)
+    z = rng.field_int(spec)
+    pts = [rng.field_int(spec) for _ in range(3)]
+    rhos, etas = [rng.field_int(spec) for _ in range(4)], [rng.field_int(spec) for _ in range(4)]
+    assert ck.commit_chunked(f, chunk).point == ck.commit(f).point
+    assert ck.open_chunked(f, z, chunk) == ck.open(f, z)
+    rem, proof = ck.open_multi_points_chunked(f, pts, chunk)
+    zpoly = P.vanishing_poly(spec, F.from_ints(spec, pts, device=cuda))
+    assert proof.point == ck.open_multi_points(f, pts).point
+    assert F.to_ints(spec, rem) == F.to_ints(spec, P.long_divide(spec, f, zpoly)[1])
+    rems, fold_proof = ck.open_folding_chunked(f, rhos, pts, etas, chunk)
+    comb = None
+    for fj, eta, rj in zip(ck.fold_polynomials(f, rhos), etas, rems):
+        q, r = P.long_divide(spec, fj, zpoly)
+        assert F.to_ints(spec, rj) == F.to_ints(spec, r)
+        scaled = P.scale(spec, q, F.from_ints(spec, eta, device=cuda))
+        comb = scaled if comb is None else P.add(spec, comb, scaled)
+    assert fold_proof.point == ck.commit(comb).point
+
+
+def _pst13_round_trip(device):
+    """MarlinPST13 at 3 variables, degree 4: two hiding polynomials at one
+    point; the commitments, the proofs, the values and the verdict."""
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.pst13 import MarlinPST13 as PC, MVPoly
+
+    rng = HostRng(22)
+    ck, vk = PC.trim(PC.setup(4, num_vars=3, rng=rng, device=device), 4, 1)
+    polys = [LabeledPolynomial(f"p{i}", MVPoly.rand(rng, 3, 4, num_terms=12), hiding_bound=1,
+                               num_vars=3) for i in range(2)]
+    comms, states = PC.commit(ck, polys, rng)
+    point = tuple(rng.field_int(PC.spec) for _ in range(3))
+    qs = {(lp.label, ("z", point)) for lp in polys}
+    proofs, values = PC.batch_open(ck, polys, comms, qs, PoseidonSponge(PC.spec), states, rng)
+    ok = PC.batch_check(vk, comms, qs, values, proofs, PoseidonSponge(PC.spec))
+    return ([c.commitment.comm for c in comms], [(p.w, p.random_v) for p in proofs], values,
+            bool(ok))
+
+
+@pytest.mark.gpu
+def test_pst13_round_trip_on_card_matches_cpu(cuda):
+    before = ec_lf.madd_scan.launches
+    got = _pst13_round_trip(cuda)
+    assert ec_lf.madd_scan.launches > before
+    assert got == _pst13_round_trip("cpu") and got[3] is True
