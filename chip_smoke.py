@@ -106,7 +106,28 @@ Phases, one JSON line each (times in ms):
      commitment of sum_j eta_j (f^(j) div Z), the last fold's commitment
      against a host fold and host MSM; each stage's K1 and K4 launches, and
      long_divide and the chunked opens under 0.1 K1 launches a
-     coefficient.
+     coefficient;
+ 14. r1cs: on phase 8's IPA SRS (no second hash-to-curve), one non-hiding
+     polynomial of degree 2^16 - 1 committed and opened, the verifier
+     transcript replayed and the in-circuit IPA succinct check
+     (IpaSuccinctCheckGadget) synthesised; satisfaction on the host and on
+     the card (is_satisfied_device: its host build and card work timed
+     apart, K1's launches), both True on the valid proof and False with the
+     value plus one; rows, variables, nonzeros a matrix and the bucket
+     widths;
+ 15. device_pairing: the BLS12-381 pairing on the card (core/pairing.py):
+     e(G1, G2) against host_pairing's Fq12 value, e(P, Q) e(-P, Q) = 1
+     with an infinite pair, an infinite input giving 1, and phase 4's
+     Marlin batch_check (2 pairs) and phase 7's MultilinearPC check (21
+     pairs) under POLY_COMMIT_PAIRING=device with the host engines'
+     verdicts, on true and tampered values; the Miller loop, the final
+     exponentiation and each check timed beside the host engine, with K1
+     launches and host synchronisations counted;
+  trace_persist: phase 4's Marlin key committed once under torch.profiler
+     with POLY_COMMIT_TRACE=1 (the MarlinKZG10::commit and KZG10::commit
+     spans and their times), then saved and loaded onto the card
+     (utils/persist, seconds and file bytes) and the same polynomial
+     committed with the loaded key, the commitments equal.
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -116,11 +137,13 @@ and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
 ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
-Phases 4-13 and ark_golden are the paths: each runs with every launch count
-set to 0 just before it and read just after; the kernel table sums them.
+Phases 4-15, ark_golden and trace_persist are the paths: each runs with
+every launch count set to 0 just before it and read just after; the kernel
+table sums them.
 Each path's line also splits K1's launches by columns (1, under 2^16,
 2^16 and up), and a k1_launches line sums that split over phases 4-8
-(without the bounded run, phase 8's equation, phases 9-13 and ark_golden,
+(without the bounded run, phase 8's equation, phases 9-15, ark_golden and
+trace_persist,
 so that it stays comparable with earlier runs). K1 and K2a count their
 launches by field: their kernel-table entries are per field.
 A k4c_launches line sums K4c's launches over phases 4-8 (at most 20 with
@@ -133,9 +156,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -308,6 +333,67 @@ def spans(targets, key=None):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """os.environ[name] = value within the block (unset for None)."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def count_syncs(fn):
+    """fn()'s result and the number of CUDA operations in it that made the
+    host wait for the device: torch's sync debug mode warns once for each."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def ipa_gadget(r1cs, inst, value, degree):
+    """IpaSuccinctCheckGadget.succinct_check synthesised over one IPA-PC
+    opening (tests/test_r1cs.py's circuit) with the claimed ``value``."""
+    from poly_commit_tpu_torch.core import field_params as FP
+
+    cs = r1cs.ConstraintSystem(FP.FR_BLS12_381)
+    r = FP.JUBJUB_R
+    proof = inst["proof"]
+    comm_vars = [r1cs.TEPointVar.witness(cs, inst["comm"])]
+    value_vars = [r1cs.NonNativeVar.witness(cs, r, value)]
+    point_var = r1cs.NonNativeVar.witness(cs, r, inst["z"])
+    h_var = r1cs.TEPointVar.witness(cs, inst["h"])
+    frc = r1cs.NonNativeVar.witness(cs, r, inst["first_round"])
+    pf = r1cs.IpaProofVar(
+        l_vec=[r1cs.TEPointVar.witness(cs, pt) for pt in proof.l_vec],
+        r_vec=[r1cs.TEPointVar.witness(cs, pt) for pt in proof.r_vec],
+        final_comm_key=r1cs.TEPointVar.witness(cs, proof.final_comm_key),
+        c=r1cs.NonNativeVar.witness(cs, r, proof.c))
+    rand = r1cs.PCCheckRandomDataVar(
+        opening_challenges=[r1cs.NonNativeVar.witness(cs, r, inst["ch"])],
+        batching_rands=[r1cs.NonNativeVar.witness(cs, r, u) for u in inst["round_chs"]])
+    r1cs.IpaSuccinctCheckGadget.succinct_check(cs, r, comm_vars, value_vars, point_var, h_var,
+                                               frc, pf, rand, degree)
+    return cs
 
 
 class Smoke:
@@ -958,7 +1044,8 @@ class Smoke:
     def check_g2(self):
         """K2c: the six G2 formulas against their plain versions, bit for bit
         on the raw limbs, at the MSM scan's width (2^16 points), on the
-        BLS12-381 Fq2 (timed: MultilinearPC's) and the BLS12-377 Fq2. Lanes
+        BLS12-381 Fq2 (MultilinearPC's: the table's entries) and the
+        BLS12-377 Fq2, both timed. Lanes
         0..3 are the edges: P at infinity, P == Q, P == -Q (z = 1), Q at
         infinity (add)."""
         from poly_commit_tpu_torch.core import ec_lf, ff
@@ -1001,9 +1088,6 @@ class Smoke:
                 errs[name] = max(errs.get(name, 0), err)
                 line = {"phase": "kernels", "kernel": name, "field": spec.name, "n": n,
                         "max_abs_err": err}
-                if spec is not FP.FQ_BLS12_381:
-                    emit(line)
-                    continue
                 ms = time_ms(lambda: fn(spec, P, *a), 20)
                 device_ms = graph_ms(lambda: fn(spec, P, *a), 20)
                 plain_ms = time_ms(lambda: ec_lf.plain(which, spec, *P, *flat), 1)
@@ -1014,7 +1098,8 @@ class Smoke:
                           + (products["double"] if complete else 0))
                 n_bytes = (self.IN_COORDS[base] + 3) * 2 * L * 4 * n
                 n_imad = n_prod * IMAD_PER_FQ_PRODUCT
-                if name not in self.OFF_PATH:
+                # the table's entries are BLS12-381's; BLS12-377's build is timed beside them
+                if name not in self.OFF_PATH and spec is FP.FQ_BLS12_381:
                     self.entry(name, "g2", err, ms, plain_ms, n_bytes, n_imad)
                 emit({**line, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                       **self.bound(n_bytes, n_imad)})
@@ -1404,6 +1489,10 @@ class Smoke:
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
         emit({"phase": "main_path_profile", "stage": "commit", **profile})
         self.main_pp = pp  # main_path_bounded trims it again
+        # phase 15 checks this run's proof with the device pairing, and
+        # trace_persist commits again with its committer key
+        self.marlin = dict(PC=PC, ck=ck, vk=vk, coeffs=coeffs, comms=comms, proofs=proofs,
+                           values=values, query_set=query_set)
         return bool(ok) and rejected and value_ok and all_launched and scanned
 
     def main_path_bounded(self):
@@ -1685,6 +1774,7 @@ class Smoke:
               "value_matches_host": device_value == value,
               "launches": launches, "launches_by_field": by_field, "ff_launches_by_size": ff_by_size,
               "all_kernels_launched": all_launched, "peak_mem_gb": peak_gb})
+        self.mlpc = dict(vk=vk, comm=comm, point=point, value=value, proof=proof)  # phase 15
         return bool(ok) and rejected and device_value == value and all_launched
 
     # -- phase 8 ----------------------------------------------------------
@@ -1774,6 +1864,7 @@ class Smoke:
               "peak_mem_gb": peak_gb})
         emit({"phase": "ipa_fold_profile", "points": half, **fold_profile})
         eq_ok = self.ipa_equation(PC, ck, vk, lp, comms, states)
+        self.ipa = dict(PC=PC, ck=ck, vk=vk)  # phase 14 reuses the SRS
         return (bool(ok) and rejected and value_ok and all_launched and one_smul_a_round and sums_ok
                 and eq_ok)
 
@@ -2372,6 +2463,213 @@ class Smoke:
                 and log_depth and all_launched and scanned)
 
 
+    # -- phase 14 ---------------------------------------------------------
+    def r1cs_path(self):
+        """R1CS on phase 8's IPA SRS (no second hash-to-curve): commit and
+        open one non-hiding polynomial of degree 2^IPA_LOG_DEGREE - 1,
+        replay the verifier transcript (tests/test_r1cs.py), synthesise the
+        in-circuit succinct check, and check satisfaction on the host and
+        on the card (its host build and its card work timed apart), for the
+        valid proof and for the value plus one."""
+        from poly_commit_tpu_torch.core import field as F
+        from poly_commit_tpu_torch.core.serialize import field_to_bytes
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import ipa_pc, r1cs
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+
+        PC, ck, vk = self.ipa["PC"], self.ipa["ck"], self.ipa["vk"]
+        self.ipa = None
+        spec, p = PC.spec, PC.spec.modulus
+        degree = ck.supported_degree
+        coeffs = self.rand_field(spec, degree + 1).T.contiguous()
+        lp = LabeledPolynomial("f", coeffs)  # no hiding: the gadget's proof form
+        stages = {}
+
+        def stage(name, fn):
+            return timed(stages, name, fn)
+
+        self.reset_counts()
+        comms, states = stage("commit", lambda: PC.commit(ck, [lp]))
+        z = HostRng(14).field_int(spec)
+        v = horner(F.to_ints(spec, coeffs), z, p)
+        proof = stage("open", lambda: PC.open(ck, [lp], comms, z, PoseidonSponge(spec), states))
+        check_poly = stage("succinct_check", lambda: PC.succinct_check(
+            vk, comms, z, [v], proof, PoseidonSponge(spec)))
+        sponge = PoseidonSponge(spec)
+        ch = sponge.squeeze_challenge_128()
+        sponge.squeeze_challenge_128()  # open squeezes a second one a polynomial
+        comm = comms[0].commitment.comm
+        data = (ipa_pc._host_pt_bytes(ipa_pc.HGROUP.mul(comm, ch)) + field_to_bytes(spec, z)
+                + field_to_bytes(spec, ch * v % p))
+        inst = dict(comm=comm, z=z, h=vk.h, proof=proof, ch=ch,
+                    first_round=ipa_pc._ro_challenge(data),
+                    round_chs=[] if check_poly is None else list(check_poly.challenges))
+        k1 = (self.ff_wrappers["ff_mont_mul"], self.ff_wrappers["ff_add"])
+        runs = {}
+        for name, value in (("valid", v), ("tampered", (v + 1) % p)):
+            cs = stage(f"synthesis_{name}", lambda: ipa_gadget(r1cs, inst, value, degree))
+            host_ok = stage(f"host_check_{name}", cs.is_satisfied)
+            sc = stage(f"device_build_{name}", cs.sparse_check)
+            before = [w.launches for w in k1]
+            dev_ok = stage(f"device_run_{name}", lambda: sc.run(cs.assignment, self.dev))
+            runs[name] = {"rows": len(cs.rows), "variables": len(cs.assignment), "nnz": list(sc.nnz),
+                          "bucket_rows": {str(w): n for w, n in sc.widths.items()},
+                          "distinct_coefficients": len(sc.values), "padded_entries": len(sc.cols),
+                          "host_check": host_ok, "device_check": dev_ok,
+                          "k1_mul_launches": k1[0].launches - before[0],
+                          "k1_add_launches": k1[1].launches - before[1]}
+            del cs, sc
+        launches, by_field, _ = self.read_counts(in_sums=False)
+        needed = ["ff_mont_mul[fr_bls12_381]", "ff_add[fr_bls12_381]", "ec_ed_smul"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        emit({"phase": "r1cs", "gadget": "IpaSuccinctCheckGadget/JubJub over Fr-381",
+              "degree": degree, "rounds": len(inst["round_chs"]), "stage_ms": stages, **runs,
+              "host_verifier_accepts": check_poly is not None,
+              "launches_by_field": by_field, "all_kernels_launched": all_launched})
+        valid, bad = runs["valid"], runs["tampered"]
+        return (check_poly is not None and valid["host_check"] and valid["device_check"]
+                and not bad["host_check"] and not bad["device_check"] and all_launched)
+
+    # -- phase 15 ---------------------------------------------------------
+    def device_pairing_path(self):
+        """The BLS12-381 pairing on the card (core/pairing.py): e(G1, G2)
+        against the host engine's Fq12 value, e(P, Q) e(-P, Q) = 1 with an
+        infinite pair, and phase 4's Marlin batch_check (2 pairs) and phase
+        7's MultilinearPC check (21 pairs) under POLY_COMMIT_PAIRING=device
+        against the host engines, on true and tampered values; the Miller
+        loop, the final exponentiation and each check timed beside the host
+        engine on the same inputs, with K1 launches and host
+        synchronisations counted."""
+        from poly_commit_tpu_torch.core import curve as C
+        from poly_commit_tpu_torch.core import hostec
+        from poly_commit_tpu_torch.core import host_pairing as HP
+        from poly_commit_tpu_torch.core import pairing as PR
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.pcs import multilinear_pc as ML
+
+        g1, g2 = C.BLS12_381_G1, C.BLS12_381_G2
+        gen1, gen2 = (g1.gen_x, g1.gen_y), (g2.gen_x, g2.gen_y)
+        k1_wrappers = list(self.ff_wrappers.values())
+        stages, k1, syncs = {}, {}, {}
+
+        def stage(name, fn):
+            before = sum(w.launches for w in k1_wrappers)
+            out = timed(stages, name, fn)
+            k1[name] = sum(w.launches for w in k1_wrappers) - before
+            return out
+
+        def aff(group, pts):
+            return C.affine_from_ints(group, pts, self.dev)
+
+        self.reset_counts()
+        p_gen, q_gen = aff(g1, [(*gen1, False)]), aff(g2, [(*gen2, False)])
+        m = stage("miller_loop", lambda: PR.miller_loop(p_gen, q_gen))
+        e = stage("final_exponentiation", lambda: PR.final_exponentiation(m))
+        host_e = stage("host_pairing", lambda: HP.pairing(gen1, gen2))
+        _, syncs["pairing"] = count_syncs(lambda: PR.pairing(p_gen, q_gen))
+        generator_equal = PR.f12_to_ints(e[0]) == host_e
+
+        pt = hostec.host_group(g1).mul_fast(gen1, 0x5EED)
+        qt = hostec.host_group(g2).mul_fast(gen2, 0xC0FFEE)
+        neg = (pt[0], (-pt[1]) % g1.spec.modulus, False)
+        q3 = aff(g2, [(*qt, False)] * 3)
+        inverse_ok = stage("check_p_neg_p_inf", lambda: bool(PR.pairing_check(
+            aff(g1, [(*pt, False), neg, (0, 0, True)]), q3)))
+        inf_one = bool(PR.f12_is_one(PR.miller_loop(aff(g1, [(0, 0, True)]),
+                                                    aff(g2, [(*qt, False)]))).all())
+
+        mk, mp = self.marlin, self.mlpc
+        PC, spec = mk["PC"], mk["PC"].spec
+        bad_values = {k: (v + 1) % spec.modulus for k, v in mk["values"].items()}
+
+        def marlin(values):
+            return lambda: PC.batch_check(mk["vk"], mk["comms"], mk["query_set"], values,
+                                          mk["proofs"], PoseidonSponge(spec))
+
+        def mlpc(value):
+            return lambda: ML.check(mp["vk"], mp["comm"], mp["point"], value, mp["proof"])
+
+        checks = {"marlin": (marlin(mk["values"]), marlin(bad_values)),
+                  "mlpc": (mlpc(mp["value"]), mlpc((mp["value"] + 1) % ML.SPEC.modulus))}
+        verdicts = {}
+        for name, (true_fn, bad_fn) in checks.items():
+            for backend in ("device", "host"):
+                with env("POLY_COMMIT_PAIRING", backend):
+                    verdicts[f"{name}_{backend}"] = [bool(stage(f"{name}_{backend}", true_fn)),
+                                                     bool(stage(f"{name}_tampered_{backend}", bad_fn))]
+            with env("POLY_COMMIT_PAIRING", "device"):
+                _, syncs[name] = count_syncs(true_fn)
+        launches, by_field, _ = self.read_counts(in_sums=False)
+        needed = ["ff_mont_mul[fq_bls12_381]", "ff_add[fq_bls12_381]", "ff_sub[fq_bls12_381]",
+                  "ff_pow[fq_bls12_381]", "ff_batch_inv[fq_bls12_381]"]
+        all_launched = self.all_launched(launches, by_field, needed)
+        agree = all(verdicts[f"{n}_device"] == verdicts[f"{n}_host"] == [True, False]
+                    for n in checks)
+        emit({"phase": "device_pairing", "curve": "BLS12-381", "stage_ms": stages,
+              "k1_launches": k1, "host_syncs": syncs, "generator_pairing_equals_host": generator_equal,
+              "p_neg_p_inf_is_one": inverse_ok, "infinite_input_gives_one": inf_one,
+              "verdicts": verdicts, "pairs": {"marlin": 2, "mlpc": len(mp["point"]) + 1},
+              "launches_by_field": by_field, "all_kernels_launched": all_launched})
+        self.mlpc = None
+        return generator_equal and inverse_ok and inf_one and agree and all_launched
+
+    def trace_persist(self):
+        """Phase 4's Marlin committer key: one commit under torch.profiler
+        with POLY_COMMIT_TRACE=1 (its MarlinKZG10::commit and KZG10::commit
+        spans), then the key saved and loaded onto the card (utils/persist)
+        and the same polynomial committed with the loaded key."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from poly_commit_tpu_torch.pcs.data_structures import LabeledPolynomial
+        from poly_commit_tpu_torch.utils import persist
+
+        torch = self.torch
+        mk, self.marlin = self.marlin, None
+        PC, ck = mk["PC"], mk["ck"]
+        lp = LabeledPolynomial("p", mk["coeffs"])
+        self.reset_counts()
+        torch.cuda.synchronize()
+        with env("POLY_COMMIT_TRACE", "1"), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            comms, _ = PC.commit(ck, [lp])
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        # each span's host range (the CPU event) and its device range (the
+        # annotation the profiler puts around the span's kernels on the card)
+        labels = ("MarlinKZG10::commit", "KZG10::commit")
+        spans = {}
+        for e in prof.events():
+            if e.name in labels:
+                side = "device_ms" if e.device_type == torch.autograd.DeviceType.CUDA else "host_ms"
+                span = spans.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0})
+                span[side] += (e.time_range.end - e.time_range.start) / 1e3
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "marlin_ck.npz")
+            t0 = time.perf_counter()
+            persist.save(path, ck)
+            save_s = time.perf_counter() - t0
+            file_bytes = os.path.getsize(path)
+            t0 = time.perf_counter()
+            loaded = persist.load(path, device=self.dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        on_card = all(t.device.type == "cuda" for t in loaded.powers + loaded.powers_of_gamma_g
+                      if isinstance(t, torch.Tensor))
+        comms2, _ = PC.commit(loaded, [lp])
+        equal = comms2[0].commitment == comms[0].commitment
+        launches, by_field, _ = self.read_counts(in_sums=False)
+        all_launched = self.all_launched(launches, by_field, ["ec_madd_scan", "digit_sort"])
+        emit({"phase": "trace", "stage": "MarlinKZG10::commit", "degree": ck.supported_degree,
+              "wall_ms": traced_ms, "spans": spans})
+        emit({"phase": "persist", "object": "MarlinKZG10 CommitterKey", "degree": ck.supported_degree,
+              "save_s": save_s, "load_s": load_s, "file_bytes": file_bytes,
+              "loaded_on_card": on_card, "commitment_equal": equal,
+              "all_kernels_launched": all_launched})
+        return (set(spans) == set(labels) and all(v["host_ms"] > 0 for v in spans.values())
+                and on_card and equal and all_launched)
+
+
 def main() -> int:
     import torch
 
@@ -2398,7 +2696,9 @@ def main() -> int:
                    "multilinear_pc": smoke.multilinear_path(), "ipa": smoke.ipa_path(),
                    "sonic": smoke.sonic_path(), "ark_golden": smoke.ark_golden(),
                    "brakedown": smoke.brakedown_path(), "hyrax": smoke.hyrax_path(),
-                   "pst13": smoke.pst13_path(), "streaming_kzg": smoke.streaming_path()}
+                   "pst13": smoke.pst13_path(), "streaming_kzg": smoke.streaming_path(),
+                   "r1cs": smoke.r1cs_path(), "device_pairing": smoke.device_pairing_path(),
+                   "trace_persist": smoke.trace_persist()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
         k4c = smoke.k4c_launches

@@ -11,9 +11,12 @@ a pair (c0, c1) of base-field elements. Two layouts, as for the base field:
 
 The arithmetic is core/ff.py's (kernel K1 on a CUDA tensor) per component:
 Karatsuba products, and the non-residue nr = -k (k = 1 for BLS12-381 and
-BN254, 5 for BLS12-377) as an addition chain. Inverses go through the norm
-a0^2 - nr a1^2 and one base-field inversion (``batch_inv`` shares one
-Fermat inversion over the whole batch).
+BN254, 5 for BLS12-377) as an addition chain; ``dbl``, ``mul_small``,
+``mul_base``, ``pack`` and ``select`` complete the JAX ``Fq2Ops`` surface
+for parity with that package (core/pairing.py works limbs-first through
+``mul_lf``/``add_lf``/``sub_lf`` and does not call them). Inverses go
+through the norm a0^2 - nr a1^2 and one base-field inversion
+(``batch_inv`` shares one Fermat inversion over the whole batch).
 """
 
 from __future__ import annotations
@@ -121,6 +124,33 @@ def sub(spec: FieldSpec, a, b):
 
 def neg(spec: FieldSpec, a):
     return sub(spec, torch.zeros_like(a), a)
+
+
+def dbl(spec: FieldSpec, a):
+    return add(spec, a, a)
+
+
+def mul_small(spec: FieldSpec, a, k: int):
+    """k a for a small static k >= 0, by an addition chain."""
+    if k == 0:
+        return torch.zeros_like(a)
+    return times_small(lambda x, y: add(spec, x, y), a, k)
+
+
+def mul_base(spec: FieldSpec, a, b):
+    """(a0 b, a1 b): an Fq2 element (..., 2, L) times a base-field element
+    (..., L), broadcast over the batch axes."""
+    return F.mont_mul(spec, a, b.unsqueeze(-2))
+
+
+def pack(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    """Two base-field elements (..., L) -> c0 + c1 u, (..., 2, L)."""
+    return torch.stack([c0, c1], -2)
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """where(mask, a, b) for a mask over the batch axes of (..., 2, L)."""
+    return torch.where(mask[..., None, None], a, b)
 
 
 def batch_inv(spec: FieldSpec, a):

@@ -124,6 +124,12 @@ def miller_loop(p_aff, q_aff):
     return f
 
 
+def pairing(p_aff, q_aff):
+    """e(P, Q) as the Fq12 value [(c0, c1)] * 6 (flattened w-basis), from
+    affine (x, y) inputs: the Miller loop, then the full final power."""
+    return _f12_pow(miller_loop(p_aff, q_aff), FINAL_EXP)
+
+
 def pairing_product_is_one(g1_triples, g2_triples) -> bool:
     """prod e(P_i, Q_i) == 1 over host int triples (x, y, inf).
 

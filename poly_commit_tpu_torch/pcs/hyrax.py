@@ -37,6 +37,7 @@ from ..core import hostec
 from ..core import msm as M
 from ..core import poly as P
 from ..core.serialize import device_point_to_ints, device_points_to_ints, point_to_bytes
+from ..utils.trace import traced
 from . import errors
 from .data_structures import LabeledCommitment, PolynomialCommitment
 
@@ -172,6 +173,7 @@ class HyraxPC(PolynomialCommitment):
     spec = SPEC
 
     @classmethod
+    @traced("Hyrax::setup")
     def setup(cls, max_degree=0, num_vars=None, rng=None, device=None):
         if num_vars is None or num_vars % 2 == 1:
             raise errors.InvalidNumberOfVariables()
@@ -182,6 +184,7 @@ class HyraxPC(PolynomialCommitment):
         return UniversalParams(com_key=com_key, h=h, com_key_host=pts)
 
     @classmethod
+    @traced("Hyrax::trim")
     def trim(cls, pp, supported_degree=0, supported_hiding_bound=0, enforced_degree_bounds=None):
         return pp, pp
 
@@ -192,6 +195,7 @@ class HyraxPC(PolynomialCommitment):
         return F.to_ints(SPEC, P.mle_evaluate(SPEC, table, pt))
 
     @classmethod
+    @traced("Hyrax::commit")
     def commit(cls, ck, polynomials, rng=None):
         if rng is None:
             raise errors.MissingRng()
@@ -210,6 +214,7 @@ class HyraxPC(PolynomialCommitment):
         return comms, states
 
     @classmethod
+    @traced("Hyrax::open")
     def open(cls, ck, polynomials, commitments, point, sponge, states, rng=None):
         """mod.rs:273-406. point: a tuple of nv ints."""
         if rng is None:
@@ -252,6 +257,7 @@ class HyraxPC(PolynomialCommitment):
         return proofs
 
     @classmethod
+    @traced("Hyrax::check")
     def check(cls, vk, commitments, point, values, proof, sponge):
         """mod.rs:418-511 (values are not read: see the module docstring)."""
         dev = vk.com_key[0].device

@@ -43,6 +43,7 @@ from ..core import hostec
 from ..core import msm as M
 from ..core import poly as P
 from ..core.serialize import field_to_bytes, point_to_bytes_uncompressed
+from ..utils.trace import traced
 from . import errors
 from .data_structures import (
     LabeledCommitment,
@@ -272,6 +273,7 @@ class InnerProductArgPC(PolynomialCommitment):
     spec = SPEC
 
     @classmethod
+    @traced("IPA_PC::setup")
     def setup(cls, max_degree, num_vars=None, rng=None, device=None):
         """The key for degree next_power_of_two(max_degree + 1) - 1: that
         many generators plus h and s, hashed to the curve on the host."""
@@ -279,6 +281,7 @@ class InnerProductArgPC(PolynomialCommitment):
         return params_from_generators(sample_generators(max_degree + 3), device)
 
     @classmethod
+    @traced("IPA_PC::trim")
     def trim(cls, pp, supported_degree, supported_hiding_bound=0, enforced_degree_bounds=None):
         supported_degree = _next_pow2_minus_1(supported_degree)
         if supported_degree > pp.max_degree:
@@ -297,6 +300,7 @@ class InnerProductArgPC(PolynomialCommitment):
                                                   lp.label)
 
     @classmethod
+    @traced("IPA_PC::commit")
     def commit(cls, ck, polynomials, rng=None):
         comms, states = [], []
         d = ck.supported_degree
@@ -323,6 +327,7 @@ class InnerProductArgPC(PolynomialCommitment):
         return comms, states
 
     @classmethod
+    @traced("IPA_PC::open")
     def open(cls, ck, polynomials, commitments, point, sponge, states, rng=None):
         """mod.rs:475-723."""
         d = ck.supported_degree
@@ -487,6 +492,7 @@ class InnerProductArgPC(PolynomialCommitment):
         return check_poly
 
     @classmethod
+    @traced("IPA_PC::check")
     def check(cls, vk, commitments, point, values, proof, sponge):
         d = vk.supported_degree
         log_d = (d + 1).bit_length() - 1
@@ -499,6 +505,7 @@ class InnerProductArgPC(PolynomialCommitment):
         return _cm_commit(vk.comm_key, coeffs) == proof.final_comm_key
 
     @classmethod
+    @traced("IPA_PC::batch_check")
     def batch_check(cls, vk, commitments, query_set, evaluations, proofs, sponge, rng=None):
         """mod.rs:775-853: a random combination of the check polynomials,
         one MSM."""

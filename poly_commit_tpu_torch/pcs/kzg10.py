@@ -5,12 +5,14 @@ kzg10/mod.rs):
   setup        mod.rs:53-124   fixed-base powers of beta on the device
   commit       mod.rs:157-210  one SRS MSM (+ the hiding MSM)
   open         mod.rs:243-310  witness division + one SRS MSM
-  check        mod.rs:314-333  host point algebra + host pairing
+  check        mod.rs:314-333  host point algebra + the pairing
   batch_check  mod.rs:337-391  RLC of the openings: two device MSMs
 
-The verifier key's G2 points h and beta_h are host int triples (two
-points: moving them to the device G2 group is still to do); single-point
-multiplications in setup and the verifier's O(1) algebra run on host ints.
+The verifier key's G2 points h and beta_h are host int triples: their only
+consumer is the pairing, which runs on the host engines, or on the device
+(core/pairing.py, from the triples) under POLY_COMMIT_PAIRING=device
+(``pairing_backend``); single-point multiplications in setup and the
+verifier's O(1) algebra run on host ints.
 Every batched operation runs on the device of the key's tensors, among
 them SonicKZG10's G2 powers neg_powers_of_h (setup's fixed-base
 multiplication on K2c).
@@ -29,9 +31,11 @@ from ..core import field as F
 from ..core import msm as M
 from ..core import poly as P
 from ..core import hostec
+from ..core import pairing as PR
 from ..core.serialize import device_point_to_ints
+from ..utils.trace import traced
 from . import errors
-from .curve_ctx import CTX_BLS12_381, CurveCtx
+from .curve_ctx import CTX_BLS12_381, CurveCtx, pairing_backend  # noqa: F401  (JAX's name)
 from .data_structures import HostRng
 
 
@@ -106,6 +110,7 @@ def host_powers(x: int, n: int, modulus: int) -> list:
     return out
 
 
+@traced("KZG10::setup")
 def setup(max_degree: int, produce_g2_powers: bool = False, rng: HostRng | None = None,
           ctx: CurveCtx = CTX_BLS12_381, device=None) -> UniversalParams:
     """Sample beta, g, gamma_g, h and build the power tables
@@ -199,6 +204,7 @@ def _pad_to(coeffs: torch.Tensor, n: int) -> torch.Tensor:
     return coeffs
 
 
+@traced("KZG10::commit")
 def commit(powers: Powers, coeffs: torch.Tensor, hiding_bound: Optional[int] = None,
            rng: HostRng | None = None, ctx: CurveCtx = CTX_BLS12_381):
     """Commit to a Montgomery coefficient array (D+1, L) (kzg10/mod.rs:157-210).
@@ -228,6 +234,7 @@ def commit(powers: Powers, coeffs: torch.Tensor, hiding_bound: Optional[int] = N
     return Commitment(point=device_point_to_ints(ctx.g1, pt)), rand
 
 
+@traced("KZG10::open")
 def open(powers: Powers, coeffs: torch.Tensor, point_int: int, rand: Randomness,
          ctx: CurveCtx = CTX_BLS12_381) -> Proof:
     """Single-poly opening proof at a point (kzg10/mod.rs:243-310)."""
@@ -250,6 +257,7 @@ def open(powers: Powers, coeffs: torch.Tensor, point_int: int, rand: Randomness,
     return Proof(w=device_point_to_ints(ctx.g1, w_pt), random_v=random_v)
 
 
+@traced("KZG10::check")
 def check(vk: VerifierKey, comm: Commitment, point_int: int, value_int: int,
           proof: Proof, ctx: CurveCtx = CTX_BLS12_381) -> bool:
     """e(C - v g - rv gamma_g + z w, h) * e(-w, beta_h) == 1
@@ -270,6 +278,7 @@ def check(vk: VerifierKey, comm: Commitment, point_int: int, value_int: int,
     )
 
 
+@traced("KZG10::batch_check")
 def batch_check(vk: VerifierKey, comms, points, values, proofs, rng: HostRng,
                 ctx: CurveCtx = CTX_BLS12_381) -> bool:
     """RLC of n openings into one 2-pairing check (kzg10/mod.rs:337-391).
@@ -323,6 +332,13 @@ def _vk_host(vk, name: str, ctx: CurveCtx = CTX_BLS12_381):
 
 
 def pairing_product_is_one_host(g1_triples, g2_triples, ctx: CurveCtx = CTX_BLS12_381) -> bool:
-    """prod e(P_i, Q_i) == 1 from host int triples, by the host pairing
-    engine (the JAX package's host branch of the same name)."""
+    """prod e(P_i, Q_i) == 1 from host int triples, on the backend
+    ``pairing_backend`` names (``CurveCtx.pairing_product_is_one``)."""
     return ctx.pairing_product_is_one(g1_triples, g2_triples)
+
+
+def pairing_check_padded(p_aff, q_aff) -> bool:
+    """core/pairing.py's pairing_check under the JAX package's name; infinite
+    pairs give f = 1. The JAX package pads the pair axis to a multiple of 4
+    so that its schemes share compiled programs; nothing is compiled here."""
+    return bool(PR.pairing_check(p_aff, q_aff))

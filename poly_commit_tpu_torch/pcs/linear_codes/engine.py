@@ -29,6 +29,7 @@ from ... import device as D
 from ...core import field as F
 from ...core.serialize import fields_to_bytes, mont_limbs_to_bytes
 from ...utils.merkle import MerklePath, MerkleTree, blake2s_hash, verify_path
+from ...utils.trace import traced
 from .. import errors
 from ..data_structures import LabeledCommitment, PolynomialCommitment
 from .utils import calculate_t, get_indices_from_sponge
@@ -109,6 +110,7 @@ class LinearCodePCS(PolynomialCommitment):
     code = None  # injected by the concrete schemes
 
     @classmethod
+    @traced("LinearCodePCS::setup")
     def setup(cls, max_degree, num_vars=None, rng=None, device=None):
         pp = cls.code.setup(max_degree, num_vars, rng, device)
         if pp.max_degree_supported() == 0 or (
@@ -127,6 +129,7 @@ class LinearCodePCS(PolynomialCommitment):
         return cls.code.evaluate_poly(labeled_poly, point)
 
     @classmethod
+    @traced("LinearCodePCS::commit")
     def commit(cls, ck, polynomials, rng=None):
         spec = cls.spec
         comms, states = [], []
@@ -146,6 +149,7 @@ class LinearCodePCS(PolynomialCommitment):
         return comms, states
 
     @classmethod
+    @traced("LinearCodePCS::open")
     def open(cls, ck, polynomials, commitments, point, sponge, states, rng=None):
         spec = cls.spec
         proof_array = []
@@ -178,6 +182,7 @@ class LinearCodePCS(PolynomialCommitment):
         return proof_array
 
     @classmethod
+    @traced("LinearCodePCS::check")
     def check(cls, vk, commitments, point, values, proof_array, sponge):
         spec = cls.spec
         p_mod = spec.modulus

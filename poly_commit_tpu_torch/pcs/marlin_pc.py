@@ -25,6 +25,7 @@ from ..core import field as F
 from ..core import hostec
 from ..core import poly as P
 from ..core.field_params import FR_BLS12_381
+from ..utils.trace import traced
 from . import errors, kzg10
 from .curve_ctx import CTX_BLS12_377, CTX_BLS12_381
 from .data_structures import (
@@ -137,10 +138,12 @@ class MarlinKZG10(PolynomialCommitment):
     spec = SPEC
 
     @classmethod
+    @traced("MarlinKZG10::setup")
     def setup(cls, max_degree, num_vars=None, rng=None, device=None):
         return kzg10.setup(max_degree, rng=rng, ctx=cls.CTX, device=device)
 
     @classmethod
+    @traced("MarlinKZG10::trim")
     def trim(cls, pp, supported_degree, supported_hiding_bound=0, enforced_degree_bounds=None):
         max_degree = pp.max_degree
         if supported_degree > max_degree:
@@ -175,6 +178,7 @@ class MarlinKZG10(PolynomialCommitment):
         return ck, vk
 
     @classmethod
+    @traced("MarlinKZG10::commit")
     def commit(cls, ck, polynomials, rng=None):
         comms, states = [], []
         for lp in polynomials:
@@ -211,6 +215,7 @@ class MarlinKZG10(PolynomialCommitment):
         return comms, states
 
     @classmethod
+    @traced("MarlinKZG10::open")
     def open(cls, ck, polynomials, commitments, point, sponge, states, rng=None):
         """marlin_pc/mod.rs:245-336."""
         spec = cls.CTX.spec
@@ -308,6 +313,7 @@ class MarlinKZG10(PolynomialCommitment):
         return combined, combined_value
 
     @classmethod
+    @traced("MarlinKZG10::check")
     def check(cls, vk, commitments, point, values, proof, sponge):
         spec = cls.CTX.spec
         z_int = int(point) % spec.modulus
@@ -323,6 +329,7 @@ class MarlinKZG10(PolynomialCommitment):
         )
 
     @classmethod
+    @traced("MarlinKZG10::batch_check")
     def batch_check(cls, vk, commitments, query_set, evaluations, proofs, sponge, rng=None):
         """marlin/mod.rs:151-219 + kzg10 batch_check RLC."""
         spec = cls.CTX.spec
@@ -353,6 +360,7 @@ class MarlinKZG10(PolynomialCommitment):
 
     # -- LC overrides (marlin/mod.rs:224-408) ---------------------------
     @classmethod
+    @traced("MarlinKZG10::open_combinations")
     def open_combinations(cls, ck, linear_combinations, polynomials, commitments,
                           eqn_query_set, sponge, states, rng=None):
         spec = cls.CTX.spec
@@ -427,6 +435,7 @@ class MarlinKZG10(PolynomialCommitment):
         return (proofs, None)  # BatchLCProof{proof, evals: None}
 
     @classmethod
+    @traced("MarlinKZG10::check_combinations")
     def check_combinations(cls, vk, linear_combinations, commitments, eqn_query_set,
                            eqn_evaluations, proof_and_evals, sponge):
         proofs, _ = proof_and_evals

@@ -31,6 +31,7 @@ from ..core import poly as P
 from ..core.curve import BLS12_381_G1, BLS12_381_G2
 from ..core.field_params import FR_BLS12_381
 from ..core.serialize import device_point_to_ints, device_points_to_ints
+from ..utils.trace import traced
 from . import errors, kzg10
 from .data_structures import HostRng
 
@@ -80,6 +81,7 @@ class Proof:
     proofs: list  # [host G2 triple] * nv
 
 
+@traced("MultilinearPC::setup")
 def setup(num_vars: int, rng: HostRng | None = None, device=None) -> UniversalParams:
     if num_vars <= 0:
         raise errors.InvalidNumberOfVariables("constant polynomial not supported")
@@ -132,6 +134,7 @@ def trim(params: UniversalParams, supported_num_vars: int):
     return ck, vk
 
 
+@traced("MultilinearPC::commit")
 def commit(ck: CommitterKey, table: torch.Tensor) -> Commitment:
     """table: (2^nv, L) Montgomery evaluation table (mod.rs:114-128)."""
     nv = int(table.shape[0]).bit_length() - 1
@@ -140,6 +143,7 @@ def commit(ck: CommitterKey, table: torch.Tensor) -> Commitment:
     return Commitment(nv=nv, g_product=device_point_to_ints(G1, pt))
 
 
+@traced("MultilinearPC::open")
 def open(ck: CommitterKey, table: torch.Tensor, point) -> Proof:
     """mod.rs:131-168: nv fold rounds, each with one G2 quotient MSM."""
     nv = ck.nv
@@ -175,6 +179,7 @@ def pairing_inputs(vk: VerifierKey, commitment: Commitment, point, value: int, p
     return g1s, g2s
 
 
+@traced("MultilinearPC::check")
 def check(vk: VerifierKey, commitment: Commitment, point, value: int, proof: Proof) -> bool:
     """e(C - v g, h) == prod_i e(g_mask_i - z_i g, pi_i) (mod.rs:172-200),
     as one product of nv + 1 pairings == 1 with the right side negated."""

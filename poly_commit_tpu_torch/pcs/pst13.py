@@ -35,6 +35,7 @@ from ..core import hostec
 from ..core import msm as M
 from ..core.field_params import FR_BLS12_381
 from ..core.serialize import device_point_to_ints, device_points_to_ints
+from ..utils.trace import traced
 from . import errors, kzg10
 from .curve_ctx import CTX_BLS12_377, CTX_BLS12_381
 from .data_structures import (
@@ -249,6 +250,7 @@ class MarlinPST13(PolynomialCommitment):
     spec = SPEC
 
     @classmethod
+    @traced("MarlinPST13::setup")
     def setup(cls, max_degree, num_vars=None, rng=None, device=None):
         if num_vars is None or num_vars < 1:
             raise errors.InvalidNumberOfVariables()
@@ -301,6 +303,7 @@ class MarlinPST13(PolynomialCommitment):
         )
 
     @classmethod
+    @traced("MarlinPST13::trim")
     def trim(cls, pp, supported_degree, supported_hiding_bound=0, enforced_degree_bounds=None):
         if supported_degree > pp.max_degree:
             raise errors.TrimmingDegreeTooLarge()
@@ -384,6 +387,7 @@ class MarlinPST13(PolynomialCommitment):
         return labeled_poly.poly.evaluate(point)
 
     @classmethod
+    @traced("MarlinPST13::commit")
     def commit(cls, ck, polynomials, rng=None):
         comms, states = [], []
         for lp in polynomials:
@@ -405,6 +409,7 @@ class MarlinPST13(PolynomialCommitment):
         return comms, states
 
     @classmethod
+    @traced("MarlinPST13::open")
     def open(cls, ck, polynomials, commitments, point, sponge, states, rng=None):
         """mod.rs:419-512."""
         p_comb = MVPoly(ck.num_vars, spec=cls.CTX.spec)
@@ -450,6 +455,7 @@ class MarlinPST13(PolynomialCommitment):
         return cache[key]
 
     @classmethod
+    @traced("MarlinPST13::check")
     def check(cls, vk, commitments, point, values, proof, sponge):
         """e(C - v g - rv gamma_g + sum_j z_j w_j, h) prod_j e(-w_j, beta_j h)
         == 1 (mod.rs:516-558, arranged so every G2 point is a fixed vk
@@ -472,6 +478,7 @@ class MarlinPST13(PolynomialCommitment):
         return cls.CTX.pairing_product_is_one(g1s, g2s, prepared=prepared)
 
     @classmethod
+    @traced("MarlinPST13::batch_check")
     def batch_check(cls, vk, commitments, query_set, evaluations, proofs, sponge, rng=None):
         """mod.rs:560-636."""
         hg1 = cls.CTX.hg1

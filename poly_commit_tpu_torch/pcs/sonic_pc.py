@@ -29,6 +29,7 @@ from ..core import hostec
 from ..core import poly as P
 from ..core.field_params import FR_BLS12_381
 from ..core.serialize import device_point_to_ints
+from ..utils.trace import traced
 from . import errors, kzg10
 from .curve_ctx import CTX_BLS12_377, CTX_BLS12_381
 from .data_structures import (
@@ -105,11 +106,13 @@ class SonicKZG10(PolynomialCommitment):
     spec = SPEC
 
     @classmethod
+    @traced("SonicKZG10::setup")
     def setup(cls, max_degree, num_vars=None, rng=None, device=None):
         return kzg10.setup(max_degree, produce_g2_powers=True, rng=rng, ctx=cls.CTX,
                            device=device)
 
     @classmethod
+    @traced("SonicKZG10::trim")
     def trim(cls, pp, supported_degree, supported_hiding_bound=0, enforced_degree_bounds=None):
         if supported_degree > pp.max_degree:
             raise errors.TrimmingDegreeTooLarge()
@@ -163,6 +166,7 @@ class SonicKZG10(PolynomialCommitment):
         return ck, vk
 
     @classmethod
+    @traced("SonicKZG10::commit")
     def commit(cls, ck, polynomials, rng=None):
         comms, states = [], []
         for lp in polynomials:
@@ -179,6 +183,7 @@ class SonicKZG10(PolynomialCommitment):
         return comms, states
 
     @classmethod
+    @traced("SonicKZG10::open")
     def open(cls, ck, polynomials, commitments, point, sponge, states, rng=None):
         """mod.rs:341-384: one combined poly opened with the plain powers."""
         spec = cls.CTX.spec
@@ -254,12 +259,14 @@ class SonicKZG10(PolynomialCommitment):
         return cls.CTX.pairing_product_is_one(g1s, g2s, prepared=prepared)
 
     @classmethod
+    @traced("SonicKZG10::check")
     def check(cls, vk, commitments, point, values, proof, sponge):
         acc = {"comms": {}, "witness": None, "adjusted": None}
         cls._accumulate_elems(acc, vk, commitments, point, values, proof, sponge, None)
         return cls._check_elems(acc, vk)
 
     @classmethod
+    @traced("SonicKZG10::batch_check")
     def batch_check(cls, vk, commitments, query_set, evaluations, proofs, sponge, rng=None):
         comms = {c.label: c for c in commitments}
         grouped = _group_queries(query_set)

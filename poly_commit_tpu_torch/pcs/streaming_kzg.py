@@ -53,6 +53,7 @@ from ..core import poly as P
 from ..core.curve import BLS12_381_G1, BLS12_381_G2
 from ..core.field_params import FR_BLS12_381
 from ..core.serialize import device_point_to_ints, device_points_to_ints
+from ..utils.trace import traced
 from .data_structures import HostRng
 from .kzg10 import affine_at, pairing_product_is_one_host
 
@@ -160,6 +161,7 @@ class CommitterKey:
                            powers_of_g2=self.powers_of_g2)
 
     # -- commitments -----------------------------------------------------
+    @traced("StreamingKZG::commit")
     def commit(self, coeffs: torch.Tensor) -> Commitment:
         """coeffs (D+1, L) Montgomery (time.rs:72-74)."""
         return Commitment(device_point_to_ints(G1, _key_msm(coeffs, self.powers_of_g)))
@@ -176,12 +178,14 @@ class CommitterKey:
         return Commitment(device_point_to_ints(G1, acc))
 
     # -- openings ----------------------------------------------------------
+    @traced("StreamingKZG::open")
     def open(self, coeffs: torch.Tensor, point: int):
         """Division by X - z (time.rs:104-123). Returns (eval, proof)."""
         quotient, rem = P.divide_by_linear_int(SPEC, coeffs, point)
         w = _key_msm(quotient, self.powers_of_g)
         return int(F.to_ints(SPEC, rem)), EvaluationProof(device_point_to_ints(G1, w))
 
+    @traced("StreamingKZG::open_multi_points")
     def open_multi_points(self, coeffs: torch.Tensor, eval_points) -> EvaluationProof:
         """Divide by the vanishing polynomial (time.rs:126-137)."""
         pts = F.from_ints(SPEC, [int(z) % SPEC.modulus for z in eval_points], device=coeffs.device)

@@ -796,3 +796,91 @@ def test_pst13_round_trip_on_card_matches_cpu(cuda):
     got = _pst13_round_trip(cuda)
     assert ec_lf.madd_scan.launches > before
     assert got == _pst13_round_trip("cpu") and got[3] is True
+
+
+def _r1cs_circuit():
+    """A small R1CS over Fr-381: 3 G on JubJub, one non-native product and a
+    263-bit range check (rows from 1 to 265 entries: every bucket kind of
+    the device check)."""
+    from poly_commit_tpu_torch.pcs import r1cs
+
+    cs = r1cs.ConstraintSystem(FP.FR_BLS12_381)
+    g = (FP.JUBJUB_G_X, FP.JUBJUB_G_Y)
+    p1 = r1cs.TEPointVar.witness(cs, g)
+    p1.enforce_on_curve()
+    p3 = p1.double().add(p1)
+    x3, y3 = hostec.host_group(curve.JUBJUB).mul(g, 3)
+    p3.enforce_equal(r1cs.TEPointVar(r1cs.FpVar.constant(cs, x3), r1cs.FpVar.constant(cs, y3)))
+    a = r1cs.NonNativeVar.witness(cs, FP.JUBJUB_R, 12345678901234567890)
+    b = r1cs.NonNativeVar.witness(cs, FP.JUBJUB_R, 98765432109876543210)
+    exp = 12345678901234567890 * 98765432109876543210 % FP.JUBJUB_R
+    a.mul(b).enforce_congruent(r1cs.NonNativeVar.witness(cs, FP.JUBJUB_R, exp))
+    r1cs.range_check(cs, r1cs.FpVar.witness(cs, (1 << 262) + 5), 263)
+    return cs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tamper", [False, True], ids=["valid", "tampered"])
+def test_r1cs_device_check_on_card_matches_host(cuda, tamper):
+    cs = _r1cs_circuit()
+    if tamper:
+        cs.assignment[2] = (cs.assignment[2] + 1) % cs.p
+    before = ff.mont_mul.launches
+    got = cs.is_satisfied_device(cuda)
+    assert ff.mont_mul.launches == before + 2  # the entries' products (one chunk), then A times B
+    assert got is cs.is_satisfied() is (not tamper)
+
+
+def _pairing_points(seed):
+    """A host point of BLS12-381's G1 and one of its G2, random multiples
+    of the generators."""
+    rnd = random.Random(seed)
+    g1, g2 = curve.BLS12_381_G1, curve.BLS12_381_G2
+    p = hostec.host_group(g1).mul_fast((g1.gen_x, g1.gen_y), rnd.randrange(1, 1 << 64))
+    q = hostec.host_group(g2).mul_fast((g2.gen_x, g2.gen_y), rnd.randrange(1, 1 << 64))
+    return p, q
+
+
+@pytest.mark.gpu
+def test_device_pairing_on_card_matches_host_pairing(cuda):
+    from poly_commit_tpu_torch.core import host_pairing as HP
+    from poly_commit_tpu_torch.core import pairing as PR
+
+    p, q = _pairing_points(1)
+    got = PR.pairing(curve.affine_from_ints(curve.BLS12_381_G1, [(p[0], p[1], False)], cuda),
+                     curve.affine_from_ints(curve.BLS12_381_G2, [(q[0], q[1], False)], cuda))
+    assert PR.f12_to_ints(got[0]) == HP.pairing(p, q)
+
+
+@pytest.mark.gpu
+def test_device_pairing_check_on_card(cuda):
+    from poly_commit_tpu_torch.core import pairing as PR
+
+    p, q = _pairing_points(2)
+    neg = (p[0], (-p[1]) % FP.BLS12_381_Q, False)
+    g2 = curve.affine_from_ints(curve.BLS12_381_G2, [(q[0], q[1], False)] * 3, cuda)
+    g1 = curve.affine_from_ints(curve.BLS12_381_G1, [(p[0], p[1], False), neg, (0, 0, True)], cuda)
+    assert bool(PR.pairing_check(g1, g2))
+    g1 = curve.affine_from_ints(curve.BLS12_381_G1, [(p[0], p[1], False)] * 2 + [(0, 0, True)],
+                                cuda)
+    assert not bool(PR.pairing_check(g1, g2))
+
+
+@pytest.mark.gpu
+def test_persisted_key_loads_onto_card(cuda, tmp_path):
+    from poly_commit_tpu_torch.pcs import kzg10
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng
+    from poly_commit_tpu_torch.utils import persist
+
+    pp = kzg10.setup(8, rng=HostRng(4), device="cpu")
+    path = str(tmp_path / "srs.npz")
+    persist.save(path, pp)
+    back = persist.load(path, device=cuda)
+    assert all(t.device.type == "cuda" for t in back.powers_of_g + back.powers_of_gamma_g)
+    coeffs = F.from_ints(FP.FR_BLS12_381, HostRng(5).field_ints(FP.FR_BLS12_381, 9), device="cpu")
+
+    def commit(params, dev):
+        powers = kzg10.Powers(params.powers_of_g, params.powers_of_gamma_g)
+        return kzg10.commit(powers, coeffs.to(dev))[0]
+
+    assert commit(back, cuda) == commit(pp, "cpu")
