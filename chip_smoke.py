@@ -128,6 +128,20 @@ Phases, one JSON line each (times in ms):
      spans and their times), then saved and loaded onto the card
      (utils/persist, seconds and file bytes) and the same polynomial
      committed with the loaded key, the commitments equal.
+  mesh: the mesh layer (poly_commit_tpu_torch.parallel) on phase 4's
+     MarlinKZG10 at degree 2^20 - 1: its commit, open and check under
+     NCCL with one rank in this process, the bytes equal to phase 4's;
+     then MESH_WORLD gloo ranks time-sharing cuda:0 (parallel/launch.py;
+     their collectives staged through host memory), the keys handed over
+     through utils/persist: phase 4's commitment and proof (a sharded MSM
+     of 2^18 points a rank), a 2^22-point NTT over BN254 Fr and its
+     inverse (ntt_sharded), Hyrax's row commitments at 22 variables (512
+     rows a rank), the Brakedown and Ligero encodes and v^T M at phases 6
+     and 10's shapes, an IPA-PC open at degree 2^10 - 1, a PST13 commit on
+     phase 12's key, and on a 2x2 mesh the Marlin commit over dp and the
+     NTT over tp; each equal to the single-device result of this run, with
+     the ranks' and the single-device ms (four ranks on one card: not a
+     scaling figure).
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -137,9 +151,10 @@ and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
 ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
-Phases 4-15, ark_golden and trace_persist are the paths: each runs with
-every launch count set to 0 just before it and read just after; the kernel
-table sums them.
+Phases 4-15, ark_golden, trace_persist and mesh are the paths: each runs
+with every launch count set to 0 just before it and read just after (the
+mesh phase's ranks count their own and return them); the kernel table sums
+them.
 Each path's line also splits K1's launches by columns (1, under 2^16,
 2^16 and up), and a k1_launches line sums that split over phases 4-8
 (without the bounded run, phase 8's equation, phases 9-15, ark_golden and
@@ -155,6 +170,8 @@ Any failure exits non-zero; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import copy
+import hashlib
 import json
 import os
 import re
@@ -182,6 +199,16 @@ STREAM_CHUNK = 1 << 16
 STREAM_DEPTH = 16  # the most folds a 2^16 chunk admits
 IMAD_PER_PRODUCT = 4 * 8 * 8 + 8  # CIOS on 8 32-bit words
 IMAD_PER_FQ_PRODUCT = 4 * 12 * 12 + 12  # CIOS on 12 32-bit words
+MESH_WORLD = 4  # the mesh phase's gloo ranks, time-sharing the one card
+MESH_IPA_LOG_DEGREE = 10  # its IPA open (a fresh hash-to-curve of 2^10 + 2 generators)
+MESH_TIMEOUT_S = 300  # its ranks' join timeout
+# the mesh layer's functions that the mesh phase times and counts
+# (parallel/mesh.py): the sharded entry points, whose calls show that a
+# scheme's mesh branch ran, the six-step NTT's transposes, the digest guard
+# and the collectives
+MESH_SPANS = ("msm_sharded", "batch_msm_sharded", "map_rows", "batch_ntt_sharded",
+              "row_mul_sharded", "fold_key_sharded", "_transpose_sharded", "_digest",
+              "_check_replicated", "_all_gather", "_all_to_all")
 
 
 def emit(obj):
@@ -432,6 +459,7 @@ class Smoke:
         self.totals = {}  # name -> launches summed over the driven paths
         self.size_totals = {}  # K1 wrapper -> launches by columns, summed over phases 4-8
         self.k4c_launches = 0  # K4c's launches summed over phases 4-8
+        self.mesh_keys = {}  # keys of phases 10-12 that the mesh phase reuses
         self.ff_ops = {"mul": ff.mont_mul, "add": ff.add, "sub": ff.sub}
         self.ff_wrappers = {**{f"ff_{w.__name__}": w for w in self.ff_ops.values()},
                             "ff_pow": ff.mont_pow, "ff_batch_inv": ff.batch_inv, "ff_sum": ff.fsum}
@@ -1445,6 +1473,7 @@ class Smoke:
         pp = stage("setup", lambda: PC.setup(degree, rng=rng, device=self.dev))
         ck, vk = stage("trim", lambda: PC.trim(pp, degree, 1))
         lp = LabeledPolynomial("p", coeffs, hiding_bound=1)
+        rng_at_commit = copy.deepcopy(rng)  # the mesh phase replays commit and open from here
         comms, states = stage("commit", lambda: PC.commit(ck, [lp], rng))
         z = rng.field_int(spec)
         query_set = {("p", ("z", z))}
@@ -1489,10 +1518,12 @@ class Smoke:
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
         emit({"phase": "main_path_profile", "stage": "commit", **profile})
         self.main_pp = pp  # main_path_bounded trims it again
-        # phase 15 checks this run's proof with the device pairing, and
-        # trace_persist commits again with its committer key
+        # phase 15 checks this run's proof with the device pairing,
+        # trace_persist commits again with its committer key, and the mesh
+        # phase replays commit and open
         self.marlin = dict(PC=PC, ck=ck, vk=vk, coeffs=coeffs, comms=comms, proofs=proofs,
-                           values=values, query_set=query_set)
+                           values=values, query_set=query_set, rng=rng_at_commit,
+                           commit_open_ms=stages["commit"] + stages["open"])
         return bool(ok) and rejected and value_ok and all_launched and scanned
 
     def main_path_bounded(self):
@@ -2073,6 +2104,7 @@ class Smoke:
         leaves = stage("blake2s", lambda: [blake2s_hash(c.tobytes()) for c in raw], split)
         root = stage("merkle", lambda: MerkleTree(leaves, ck.merkle_config()).root, split)
         del ext, raw
+        self.mesh_keys["brakedown"] = ck
 
         ints = F.to_ints(spec, table)  # the value: the host MLE fold
         for z in point:
@@ -2124,6 +2156,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         pp = stage("setup", lambda: PC.setup(0, num_vars=nv, rng=rng, device=self.dev))
         ck, vk = stage("trim", lambda: PC.trim(pp))
+        self.mesh_keys["hyrax"] = ck
         lp = LabeledPolynomial("p", table, hiding_bound=1, num_vars=nv)
         before = {k: w.launches for k, w in self.wrappers.items()}
         with spans([(msm_gpu, "_fold_host")]) as folds:
@@ -2295,6 +2328,7 @@ class Smoke:
                                             "ff_pow[fq_bls12_381]", "ff_batch_inv[fq_bls12_381]"]
         all_launched = self.all_launched(launches, by_field, needed)
         scanned = launches["ec_madd_distinct_packed"] <= self.MAX_PACKED_MADD_LAUNCHES
+        self.mesh_keys["pst13"] = (ck, polys[0].poly, comms[0].commitment)  # polys[0] is not hiding
         del polys, coeffs, states
 
         # MarlinPST13_BLS12_377: a small round trip, its launches apart
@@ -2624,7 +2658,7 @@ class Smoke:
         from poly_commit_tpu_torch.utils import persist
 
         torch = self.torch
-        mk, self.marlin = self.marlin, None
+        mk = self.marlin
         PC, ck = mk["PC"], mk["ck"]
         lp = LabeledPolynomial("p", mk["coeffs"])
         self.reset_counts()
@@ -2669,6 +2703,338 @@ class Smoke:
         return (set(spans) == set(labels) and all(v["host_ms"] > 0 for v in spans.values())
                 and on_card and equal and all_launched)
 
+    # -- mesh -------------------------------------------------------------
+    def mesh_path(self):
+        """The mesh layer (poly_commit_tpu_torch.parallel). First NCCL with
+        one rank in this process: phase 4's commit, open and check under
+        use_mesh(make_mesh(1)), equal to phase 4's. Then MESH_WORLD gloo ranks
+        time-sharing cuda:0 (parallel/launch.py; their collectives staged
+        through host memory), each check held against the single-device
+        result of this run (mesh_rank)."""
+        import torch.distributed as dist
+
+        from poly_commit_tpu_torch.core import ff, ntt_lf
+        from poly_commit_tpu_torch.core import field_params as FP
+        from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+        from poly_commit_tpu_torch.parallel import launch as PL
+        from poly_commit_tpu_torch.parallel import mesh as PM
+        from poly_commit_tpu_torch.pcs import hyrax, ipa_pc
+        from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+        from poly_commit_tpu_torch.pcs.linear_codes import engine
+        from poly_commit_tpu_torch.utils import persist
+
+        torch = self.torch
+        t_phase = time.perf_counter()
+        mk, self.marlin = self.marlin, None
+        PC, spec = mk["PC"], mk["PC"].spec
+        lp = LabeledPolynomial("p", mk["coeffs"], hiding_bound=1)
+        want_marlin = (mk["comms"], mk["query_set"], mk["proofs"], mk["values"])
+
+        # NCCL, one rank, in this process: commit + open cold (NCCL builds its
+        # communicator at the first collective), check, commit + open warm;
+        # the digest guard and the collectives timed apart
+        self.reset_counts()
+        nccl_ms = {}
+        t0 = time.perf_counter()
+        mesh = PM.make_mesh(1)
+        try:
+            nccl = {"backend": mesh.backend, "world": 1, "device": str(mesh.device),
+                    "staged": mesh.staged, "make_mesh_ms": (time.perf_counter() - t0) * 1e3}
+            with PM.use_mesh(mesh), spans([(PM, a) for a in MESH_SPANS]) as parts:
+                got = timed(nccl_ms, "commit_open", lambda: marlin_commit_open(
+                    PC, mk["ck"], lp, copy.deepcopy(mk["rng"])))
+                cold = dict(parts)
+                parts.clear()
+                ok = timed(nccl_ms, "check", lambda: PC.batch_check(
+                    mk["vk"], got[0], got[1], got[3], got[2], PoseidonSponge(spec)))
+                again = timed(nccl_ms, "commit_open_warm", lambda: marlin_commit_open(
+                    PC, mk["ck"], lp, copy.deepcopy(mk["rng"])))
+                warm = dict(parts)
+        finally:
+            dist.destroy_process_group()
+        launches, by_field, _ = self.read_counts(in_sums=False)
+        nccl_launched = self.all_launched(launches, by_field, ["ec_madd_scan", "digit_sort"])
+        single_nccl = {}
+        mine = timed(single_nccl, "commit_open", lambda: marlin_commit_open(
+            PC, mk["ck"], lp, copy.deepcopy(mk["rng"])))
+        timed(single_nccl, "check", lambda: PC.batch_check(
+            mk["vk"], mine[0], mine[1], mine[3], mine[2], PoseidonSponge(spec)))
+        nccl.update(ms=nccl_ms, parts_cold=cold, parts_warm=warm, single_ms=single_nccl,
+                    sharded=cold.get("msm_sharded", (0, 0))[1] > 0,
+                    equal=got == want_marlin and again == want_marlin and mine == want_marlin,
+                    check=bool(ok))
+
+        # the gloo ranks' inputs: keys through utils/persist, the rest seeded
+        # or pickled; and the single-device results on the same inputs
+        single_ms = {"marlin_commit_open": mk["commit_open_ms"]}
+
+        def single(name, fn):
+            return timed(single_ms, name, fn)
+
+        tmp = tempfile.mkdtemp(prefix="mesh_smoke_")
+        save_s = {}
+        t0 = time.perf_counter()
+        persist.save(os.path.join(tmp, "marlin.npz"), mk["ck"])
+        save_s["marlin_ck"] = time.perf_counter() - t0
+        keys = {"hyrax": self.mesh_keys.pop("hyrax"), "brakedown": self.mesh_keys.pop("brakedown")}
+        pst_ck, pst_poly, pst_comm = self.mesh_keys.pop("pst13")
+        keys["pst13"] = pst_ck
+        IPA = ipa_pc.InnerProductArgPC
+        ipa_degree = (1 << MESH_IPA_LOG_DEGREE) - 1
+        keys["ipa"] = IPA.trim(IPA.setup(ipa_degree, rng=HostRng(23), device=self.dev),
+                               ipa_degree, 0, None)[0]
+        for name, key in keys.items():
+            t0 = time.perf_counter()
+            persist.save(os.path.join(tmp, f"{name}.npz"), key)
+            save_s[f"{name}_ck"] = time.perf_counter() - t0
+        dev = self.dev
+        ntt_spec, n = FP.FR_BN254, 1 << NTT_LOG_N
+        a = seeded_field(ntt_spec, n, 1, dev)
+
+        def ntt():
+            return ff.to_field_last(ff.canonicalize(ntt_spec, ntt_lf.ntt(ntt_spec, ff.from_field_last(a))),
+                                    (n,))
+
+        fwd = single("ntt", ntt)
+        single("ntt_again", ntt)
+        want = {"marlin": want_marlin, "marlin_commit": mk["comms"],
+                "ntt": [sha(c) for c in fwd.chunk(MESH_WORLD)],
+                "ntt_tp": [sha(c) for c in fwd.chunk(2)], "pst13_poly": pst_poly}
+        htable = seeded_field(hyrax.HyraxPC.spec, 1 << HYRAX_NUM_VARS, 2, dev)
+        hcomms, _ = single("hyrax_commit", lambda: hyrax.HyraxPC.commit(keys["hyrax"], [LabeledPolynomial(
+            "p", htable, hiding_bound=1, num_vars=HYRAX_NUM_VARS)], HostRng(21)))
+        want["hyrax_commit"] = hcomms[0].commitment
+        want["pst13_commit"] = single("pst13_commit", lambda: pst13_commit(pst_ck, pst_poly))
+        want["pst13_matches_phase_12"] = want["pst13_commit"] == pst_comm
+        for name, (PCL, ck, log_len) in mesh_codes(keys, dev).items():
+            rows, cols = ck.compute_dimensions(1 << log_len)
+            mat, vec = code_inputs(PCL.spec, rows, cols, dev)
+            want[f"{name}_encode"] = sha(single(f"{name}_encode", lambda: PCL.code.encode_rows(mat, ck)))
+            want[f"{name}_row_mul"] = sha(single(f"{name}_row_mul",
+                                                 lambda: engine._row_mul(PCL.spec, vec, mat)))
+            want[f"{name}_shape"] = (rows, cols)
+        want["ipa_open"] = single("ipa_open", lambda: ipa_open(keys["ipa"], dev))
+        del fwd, htable
+        torch.save({"marlin_coeffs": mk["coeffs"].cpu(), "marlin_rng": mk["rng"], "want": want,
+                    "ntt_n": n, "hyrax_nv": HYRAX_NUM_VARS}, os.path.join(tmp, "inputs.pt"))
+        prep_s = time.perf_counter() - t_phase
+        del mk, keys
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+
+        t0 = time.perf_counter()
+        try:
+            ranks = PL.launch(mesh_rank, MESH_WORLD, backend="gloo", device="cuda:0",
+                              args=(tmp,), timeout=MESH_TIMEOUT_S)
+        finally:
+            for f in os.listdir(tmp):
+                os.remove(os.path.join(tmp, f))
+            os.rmdir(tmp)
+        launch_s = time.perf_counter() - t0
+        checks = {}
+        for name in ranks[0]["checks"]:
+            got = [r["checks"][name] for r in ranks]
+            checks[name] = {"equal": all(g["equal"] for g in got), "rank_ms": [g["ms"] for g in got],
+                            "single_ms": single_ms.get(name),
+                            "sharded": all(g["sharded"] for g in got), "calls": got[0]["calls"],
+                            **{k: [g[k] for g in got] for k in ("digest_ms", "guard_ms", "collective_ms")}}
+        launches, by_field = {}, {}
+        for r in ranks:
+            for into, counts in ((launches, r["launches"]), (by_field, r["by_field"])):
+                for k, c in counts.items():
+                    into[k] = into.get(k, 0) + c
+        for name, count in {**launches, **by_field}.items():
+            self.totals[name] = self.totals.get(name, 0) + count
+        needed = ["ec_madd_scan", "digit_sort", "ntt_fused_stages", "ntt_stages", "ec_ed_smul",
+                  "ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]"]
+        gloo_launched = self.all_launched(launches, by_field, needed)
+        seconds = time.perf_counter() - t_phase
+        emit({"phase": "mesh", "gpu": nvidia_smi("name,power.limit"),
+              "note": f"{MESH_WORLD} ranks time-sharing one card: equality, not a scaling figure",
+              "nccl": nccl, "gloo": {k: ranks[0][k] for k in ("backend", "world", "device", "staged")},
+              "coords_2d": [r["coords_2d"] for r in ranks], "checks": checks,
+              "pst13_single_matches_phase_12": want["pst13_matches_phase_12"],
+              "code_shapes": {k: v for k, v in want.items() if k.endswith("_shape")},
+              "persist_save_s": save_s, "prep_s": prep_s, "launch_s": launch_s,
+              "rank_setup_s": [r["setup_s"] for r in ranks], "seconds": seconds,
+              "launches": launches, "launches_by_field": by_field,
+              "all_kernels_launched": nccl_launched and gloo_launched})
+        return (nccl["equal"] and nccl["check"] and nccl["sharded"] and want["pst13_matches_phase_12"]
+                and all(c["equal"] and c["sharded"] for c in checks.values())
+                and nccl_launched and gloo_launched)
+
+
+def sha(t) -> str:
+    """sha256 of a tensor's bytes (of canonical limbs: equal values, equal
+    hashes)."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def seeded_field(spec, n, seed, device):
+    """(n, L) canonical Montgomery limbs drawn by a torch generator seeded
+    with ``seed``: the same tensor in every process on the same card."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t = torch.randint(0, 1 << 16, (n, spec.n_limbs), generator=gen, device=device, dtype=torch.int32)
+    top = spec.modulus >> (16 * (spec.n_limbs - 1))
+    t[:, -1] = torch.randint(0, top, (n,), generator=gen, device=device, dtype=torch.int32)
+    return t
+
+
+def marlin_commit_open(PC, ck, lp, rng):
+    """Phase 4's commit and batch_open from its rng state after trim:
+    (commitments, query set, proofs, values)."""
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+
+    comms, states = PC.commit(ck, [lp], rng)
+    query_set = {("p", ("z", rng.field_int(PC.spec)))}
+    proofs, values = PC.batch_open(ck, [lp], comms, query_set, PoseidonSponge(PC.spec), states, rng)
+    return comms, query_set, proofs, values
+
+
+def pst13_commit(ck, poly):
+    """Phase 12's first polynomial (not hiding), committed: its commitment."""
+    from poly_commit_tpu_torch.pcs import pst13
+    from poly_commit_tpu_torch.pcs.data_structures import LabeledPolynomial
+
+    comms, _ = pst13.MarlinPST13.commit(ck, [LabeledPolynomial("p0", poly, num_vars=poly.num_vars)])
+    return comms[0].commitment
+
+
+def mesh_codes(keys, device):
+    """The linear codes of the mesh phase: name -> (scheme, committer key,
+    the log2 of phases 6 and 10's polynomial lengths)."""
+    from poly_commit_tpu_torch.pcs import linear_codes as LC
+
+    ml, uni = LC.MultilinearLigeroBN254, LC.UnivariateLigero
+    return {"brakedown": (LC.MultilinearBrakedown, keys["brakedown"], BRAKEDOWN_NUM_VARS),
+            "ligero_ml": (ml, ml.code.setup(0, LIGERO_NUM_VARS, None, device), LIGERO_NUM_VARS),
+            "ligero_uni": (uni, uni.code.setup(0, None, None, device), LOG_DEGREE)}
+
+
+def code_inputs(spec, rows, cols, device):
+    """A (rows, cols) coefficient matrix and a row vector, seeded."""
+    return (seeded_field(spec, rows * cols, 3, device).reshape(rows, cols, -1),
+            seeded_field(spec, rows, 4, device))
+
+
+def ipa_open(ck, device):
+    """An IPA-PC commit and open at the key's degree (no hiding): the
+    proof's fields."""
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+    from poly_commit_tpu_torch.pcs import ipa_pc
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+
+    PC = ipa_pc.InnerProductArgPC
+    rng = HostRng(24)
+    lp = LabeledPolynomial("p", seeded_field(PC.spec, ck.supported_degree + 1, 5, device))
+    comms, states = PC.commit(ck, [lp], rng)
+    query_set = {("p", ("z", rng.field_int(PC.spec)))}
+    proofs, _ = PC.batch_open(ck, [lp], comms, query_set, PoseidonSponge(PC.spec), states, rng)
+    return [(p.l_vec, p.r_vec, p.final_comm_key, p.c, p.hiding_comm, p.rand) for p in proofs]
+
+
+def mesh_rank(tmp):
+    """One of the mesh phase's gloo ranks, on cuda:0 (shared with the other
+    ranks): loads the keys (utils/persist) and inputs from ``tmp``, runs
+    each check under the mesh and holds it against the single-device
+    result; returns the equalities, each check's ms, its calls of the mesh
+    layer (``sharded``: the branch's entry point ran), the ms of its digests
+    and collectives, and the launches."""
+    import torch
+
+    from poly_commit_tpu_torch.core import field_params as FP
+    from poly_commit_tpu_torch.parallel import mesh as PM
+    from poly_commit_tpu_torch.pcs import hyrax
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.linear_codes import engine
+    from poly_commit_tpu_torch.pcs.marlin_pc import MarlinKZG10
+    from poly_commit_tpu_torch.utils import persist
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    mesh = PM.make_mesh(device=dev)
+    d, i = mesh.size(), mesh.index()
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    want, hyrax_nv = inp["want"], inp["hyrax_nv"]
+    keys = {k: persist.load(os.path.join(tmp, f"{k}.npz"), device=dev)
+            for k in ("marlin", "hyrax", "brakedown", "pst13", "ipa")}
+    lp = LabeledPolynomial("p", inp["marlin_coeffs"].to(dev), hiding_bound=1)
+    ntt_spec = FP.FR_BN254
+    a = seeded_field(ntt_spec, inp["ntt_n"], 1, dev)
+    codes = {}
+    for name, (PCL, ck, _) in mesh_codes(keys, dev).items():
+        rows, cols = want[f"{name}_shape"]
+        codes[name] = (PCL, ck) + code_inputs(PCL.spec, rows, cols, dev)
+    htable = seeded_field(hyrax.HyraxPC.spec, 1 << hyrax_nv, 2, dev)
+    smoke = Smoke()  # its launch counters
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    checks = {}
+
+    def check(name, fn, expect, *routes):
+        """fn() under spans of the mesh layer; sharded when every one of
+        ``routes`` (mesh-layer functions) ran."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with spans([(PM, attr) for attr in MESH_SPANS]) as parts:
+            got = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        calls = {k: c for k, (_, c) in parts.items()}
+        checks[name] = {"equal": got == expect, "ms": ms, "calls": calls,
+                        "sharded": all(calls.get(r, 0) > 0 for r in routes),
+                        # the digests' sums; the guard (sums and their gather); every
+                        # collective, the guard's gathers included
+                        "digest_ms": parts.get("_digest", (0.0, 0))[0],
+                        "guard_ms": parts.get("_check_replicated", (0.0, 0))[0],
+                        "collective_ms": sum(parts.get(k, (0.0, 0))[0]
+                                             for k in ("_all_gather", "_all_to_all"))}
+
+    smoke.reset_counts()
+    with PM.use_mesh(mesh):
+        check("marlin_commit_open", lambda: marlin_commit_open(
+            MarlinKZG10, keys["marlin"], lp, copy.deepcopy(inp["marlin_rng"])), want["marlin"],
+            "msm_sharded")
+        mine = PM.shard_batch(a, mesh)
+        check("ntt", lambda: sha(PM.ntt_sharded(ntt_spec, mine, mesh)), want["ntt"][i],
+              "_transpose_sharded")
+        # again, with the twiddle and cross-twiddle tables built: the staging's share
+        check("ntt_again", lambda: sha(PM.ntt_sharded(ntt_spec, mine, mesh)), want["ntt"][i],
+              "_transpose_sharded")
+        check("intt", lambda: bool(torch.equal(PM.ntt_sharded(
+            ntt_spec, PM.ntt_sharded(ntt_spec, mine, mesh), mesh, inverse=True), mine)), True,
+            "_transpose_sharded")
+        check("hyrax_commit", lambda: hyrax.HyraxPC.commit(keys["hyrax"], [LabeledPolynomial(
+            "p", htable, hiding_bound=1, num_vars=hyrax_nv)], HostRng(21))[0][0].commitment,
+            want["hyrax_commit"], "batch_msm_sharded")
+        for name, (PCL, ck, mat, vec) in codes.items():
+            check(f"{name}_encode", lambda: sha(PCL.code.encode_rows(mat, ck)),
+                  want[f"{name}_encode"], "map_rows" if name == "brakedown" else "batch_ntt_sharded")
+            check(f"{name}_row_mul", lambda: sha(engine._row_mul(PCL.spec, vec, mat)),
+                  want[f"{name}_row_mul"], "row_mul_sharded")
+        check("ipa_open", lambda: ipa_open(keys["ipa"], dev), want["ipa_open"],
+              "msm_sharded", "fold_key_sharded")
+        check("pst13_commit", lambda: pst13_commit(keys["pst13"], want["pst13_poly"]),
+              want["pst13_commit"], "msm_sharded")
+    mesh_2d = PM.make_mesh_2d(2, d // 2, device=dev)
+    with PM.use_mesh(mesh_2d, "dp"):
+        check("marlin_commit_dp", lambda: MarlinKZG10.commit(
+            keys["marlin"], [lp], copy.deepcopy(inp["marlin_rng"]))[0], want["marlin_commit"],
+            "msm_sharded")
+    with PM.use_mesh(mesh_2d, "tp"):
+        check("ntt_tp", lambda: sha(PM.ntt_sharded(ntt_spec, PM.shard_batch(a, mesh_2d, "tp"), mesh_2d,
+                                                   axis="tp")), want["ntt_tp"][mesh_2d.index("tp")],
+              "_transpose_sharded")
+    launches, by_field, _ = smoke.read_counts(in_sums=False)
+    return {"rank": i, "backend": mesh.backend, "world": d, "device": str(mesh.device),
+            "staged": mesh.staged, "coords_2d": mesh_2d.coords, "checks": checks,
+            "setup_s": setup_s, "launches": {k: c for k, c in launches.items() if c},
+            "by_field": by_field}
+
 
 def main() -> int:
     import torch
@@ -2698,7 +3064,7 @@ def main() -> int:
                    "brakedown": smoke.brakedown_path(), "hyrax": smoke.hyrax_path(),
                    "pst13": smoke.pst13_path(), "streaming_kzg": smoke.streaming_path(),
                    "r1cs": smoke.r1cs_path(), "device_pairing": smoke.device_pairing_path(),
-                   "trace_persist": smoke.trace_persist()}
+                   "trace_persist": smoke.trace_persist(), "mesh": smoke.mesh_path()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
         k4c = smoke.k4c_launches

@@ -28,6 +28,10 @@ Ported so far (see ROADMAP.md):
   pcs.hyrax                 — Hyrax over BN254
   pcs.pst13                 — MarlinPST13 over BLS12-381 and BLS12-377
   pcs.streaming_kzg         — streaming KZG (Gemini): time and space provers
+  parallel.mesh             — meshes of torch.distributed ranks, the sharded
+                              MSM, NTT and batch operations, and the schemes'
+                              mesh branches under ``use_mesh``;
+                              parallel.launch starts local ranks
   core.msm_gpu              — Pippenger MSM (G1, G2, JubJub) and fixed-base
                               multiplication (G1, G2)
   core.extfield             — Fq2 on the port's tensors

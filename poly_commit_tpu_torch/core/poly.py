@@ -69,12 +69,19 @@ def tensor_lsb(spec: FieldSpec, point: torch.Tensor) -> torch.Tensor:
 
 
 def _tree_sum(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
-    """Sum of the rows of (n, L) in log2 n additions."""
+    """Sum of the rows of (n, ...) along the leading axis in log2 n
+    additions."""
     while t.shape[0] > 1:
         if t.shape[0] % 2:
             t = torch.cat([t, torch.zeros_like(t[:1])], 0)
         t = F.add(spec, t[0::2], t[1::2])
     return t[0]
+
+
+def row_combination(spec: FieldSpec, vec: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """v^T M for vec (n, L) and mat (n, m, L) -> (m, L): one product and a
+    log-depth sum of the rows (the linear codes' v = b^T M)."""
+    return _tree_sum(spec, F.mont_mul(spec, vec[:, None, :], mat))
 
 
 def evaluate(spec: FieldSpec, coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ adds the hiding terms h r_i (``fixed_base_mul``, one K2a ``add``) and
 normalises all rows in one batched inversion. Open's lt = l^T M is one K1
 product and log2(dim) K1 additions; inner products are a product and a
 halving sum. Hash-to-curve, the Poseidon transcript and the verifier's
-O(1) algebra run on host ints. Left out: the JAX package's mesh branch.
+O(1) algebra run on host ints. Under an active mesh whose axis size
+divides the row count, the row commitments shard their rows over the ranks
+(``parallel.mesh.batch_msm_sharded``), as the JAX package's branch does.
 
 As in the JAX package: the per-row hiding randomness comes from the
 caller's seeded HostRng, and ``check`` does not read the claimed values
@@ -37,6 +39,7 @@ from ..core import hostec
 from ..core import msm as M
 from ..core import poly as P
 from ..core.serialize import device_point_to_ints, device_points_to_ints, point_to_bytes
+from ..parallel import mesh as PM
 from ..utils.trace import traced
 from . import errors
 from .data_structures import LabeledCommitment, PolynomialCommitment
@@ -159,10 +162,17 @@ def _tensors(point, device):
 
 
 def _commit_rows(ck, mat: torch.Tensor, rand_mont: torch.Tensor):
-    """All row commitments: msm_rows over the key, plus h r_i by batched
+    """All row commitments: msm_rows over the key (its rows sharded over an
+    active mesh whose axis size divides them), plus h r_i by batched
     fixed-base multiplication and one addition, normalised together."""
     dev = mat.device
-    row_pts = M.msm_rows(GROUP, F.from_mont(SPEC, mat), ck.com_key, assume_distinct=True)
+    plain_rows = F.from_mont(SPEC, mat)
+    active = PM.active_mesh()
+    if active is not None and mat.shape[0] % active[0].size(active[1]) == 0:
+        mesh, axis = active
+        row_pts = PM.batch_msm_sharded(GROUP, plain_rows, ck.com_key, mesh, axis, assume_distinct=True)
+    else:
+        row_pts = M.msm_rows(GROUP, plain_rows, ck.com_key, assume_distinct=True)
     h_dev = GROUP.from_affine(F.from_ints(BASE, ck.h[0], device=dev),
                               F.from_ints(BASE, ck.h[1], device=dev))
     h_terms = M.fixed_base_mul(GROUP, h_dev, F.from_mont(SPEC, rand_mont))

@@ -22,7 +22,10 @@ accumulation run on host ints, as do the h' terms of each round's L and R
 (one point each). The shifted-key commitment is a shifted polynomial
 against the full key (the same group element). The LC methods
 (open_combinations / check_combinations) combine the commitments on host
-ints and the polynomials on the device. The mesh branches are not ported.
+ints and the polynomials on the device. Under an active mesh of more than
+one rank, each round whose half divides by the axis size shards its two
+MSMs and its key fold over the ranks (``parallel.mesh.msm_sharded``,
+``fold_key_sharded``); the other rounds run locally, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..core import hostec
 from ..core import msm as M
 from ..core import poly as P
 from ..core.serialize import field_to_bytes, point_to_bytes_uncompressed
+from ..parallel import mesh as PM
 from ..utils.trace import traced
 from . import errors
 from .data_structures import (
@@ -248,6 +252,16 @@ def fold_key(k_l, k_r, ch: int):
     return GROUP.to_affine(GROUP.add(GROUP.from_affine(*k_l), kr_mul))
 
 
+def _mesh_for(half: int):
+    """The active (mesh, axis) where it has more than one rank and its axis
+    size divides ``half``, else None (that round runs locally)."""
+    active = PM.active_mesh()
+    if active is None:
+        return None
+    n_dev = active[0].size(active[1])
+    return active if n_dev > 1 and half % n_dev == 0 else None
+
+
 def _host_pt_bytes(pt) -> bytes:
     return point_to_bytes_uncompressed(GROUP, (pt[0], pt[1], False))
 
@@ -406,8 +420,15 @@ class InnerProductArgPC(PolynomialCommitment):
             k_r = tuple(a[half:n] for a in key)
 
             # L = <c_r, G_l> + <c_r, z_l> h', R = <c_l, G_r> + <c_l, z_r> h'
-            l_msm = M.msm_mont(GROUP, c_r, k_l, assume_distinct=True)
-            r_msm = M.msm_mont(GROUP, c_l, k_r, assume_distinct=True)
+            mk = _mesh_for(half)
+            if mk is not None:
+                l_msm = PM.msm_sharded(GROUP, F.from_mont(SPEC, c_r), k_l, mk[0], axis=mk[1],
+                                       assume_distinct=True)
+                r_msm = PM.msm_sharded(GROUP, F.from_mont(SPEC, c_l), k_r, mk[0], axis=mk[1],
+                                       assume_distinct=True)
+            else:
+                l_msm = M.msm_mont(GROUP, c_r, k_l, assume_distinct=True)
+                r_msm = M.msm_mont(GROUP, c_l, k_r, assume_distinct=True)
             l_host = HGROUP.add(_to_host(l_msm), HGROUP.mul_fast(h_prime, _inner_product(c_r, z_l)))
             r_host = HGROUP.add(_to_host(r_msm), HGROUP.mul_fast(h_prime, _inner_product(c_l, z_r)))
             l_vec.append(l_host)
@@ -420,7 +441,10 @@ class InnerProductArgPC(PolynomialCommitment):
 
             coeffs = F.add(SPEC, c_l, F.mont_mul(SPEC, c_r, chf_inv))
             zpow = F.add(SPEC, z_l, F.mont_mul(SPEC, z_r, chf))
-            key = fold_key(k_l, k_r, round_ch)
+            if mk is not None:
+                key = PM.fold_key_sharded(GROUP, k_l, k_r, round_ch, mk[0], axis=mk[1])
+            else:
+                key = fold_key(k_l, k_r, round_ch)
             n = half
 
         x, y, inf = (a[0] for a in key)

@@ -33,6 +33,7 @@ from ..core import poly as P
 from ..core import hostec
 from ..core import pairing as PR
 from ..core.serialize import device_point_to_ints
+from ..parallel import mesh as PM
 from ..utils.trace import traced
 from . import errors
 from .curve_ctx import CTX_BLS12_381, CurveCtx, pairing_backend  # noqa: F401  (JAX's name)
@@ -97,8 +98,15 @@ class Proof:
 
 def _srs_msm(coeffs_mont: torch.Tensor, key, ctx: CurveCtx = CTX_BLS12_381) -> tuple:
     """SRS-sized MSM (kzg10/mod.rs:175,199,255,270); the bases are an SRS,
-    so the branch-free mixed add is exact."""
-    return M.msm_mont(ctx.g1, coeffs_mont, key, assume_distinct=True)
+    so the branch-free mixed add is exact. Under an active mesh
+    (``parallel.mesh.use_mesh``, one rank included) the bases and scalars
+    are padded and sharded over the mesh axis (``msm_sharded``)."""
+    active = PM.active_mesh()
+    if active is None:
+        return M.msm_mont(ctx.g1, coeffs_mont, key, assume_distinct=True)
+    mesh, axis = active
+    sc, pts = PM.pad_msm_inputs(ctx.g1, F.from_mont(ctx.spec, coeffs_mont), key, mesh.size(axis))
+    return PM.msm_sharded(ctx.g1, sc, pts, mesh, axis=axis, assume_distinct=True)
 
 
 def host_powers(x: int, n: int, modulus: int) -> list:

@@ -18,8 +18,10 @@ parameters (``device``); there is no kernel of Brakedown's own, only K1.
 Setup draws every non-zero from the caller's HostRng in the JAX package's
 order (a u64 for the Fisher-Yates swap, then a non-zero field element),
 reading the draws from bulk draws of the same ChaCha stream: the same
-values, without a Python call per draw. Left out: the JAX package's mesh
-branch of ``encode_rows``.
+values, without a Python call per draw. Under an active mesh of more than
+one rank whose axis size divides the row count, ``encode_rows`` splits the
+rows over the ranks and all-gathers their codewords
+(``parallel.mesh.map_rows``), as the JAX package's branch does.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ... import device as D
 from ...core import ff
 from ...core import field as F
 from ...core import poly as P
+from ...parallel import mesh as PM
 from ...utils.merkle import MerkleConfig
 from .. import errors
 from .engine import LinearCodePCS
@@ -345,10 +348,21 @@ class MultilinearBrakedownCode:
 
     def encode_rows(self, mat: torch.Tensor, pp: BrakedownPCParams) -> torch.Tensor:
         """The recursive expander encode of every row of mat (R, m, L)
-        (multilinear_brakedown/mod.rs:56-84) -> (R, m_ext, L)."""
-        spec = self.spec
+        (multilinear_brakedown/mod.rs:56-84) -> (R, m_ext, L). Under an
+        active mesh of more than one rank whose axis size divides R, each
+        rank encodes its rows (every row's encode is independent)."""
         if mat.shape[-2] != pp.m:
             raise errors.PCError("encoding input has wrong length")
+        active = PM.active_mesh()
+        if active is not None and mat.ndim == 3:
+            mesh, axis = active
+            if mesh.size(axis) > 1 and mat.shape[0] % mesh.size(axis) == 0:
+                return PM.map_rows(lambda m: self._encode_body(m, pp), mat, mesh, axis,
+                                   what="Brakedown encode_rows")
+        return self._encode_body(mat, pp)
+
+    def _encode_body(self, mat: torch.Tensor, pp: BrakedownPCParams) -> torch.Tensor:
+        spec = self.spec
         rows, L = mat.shape[0], spec.n_limbs
         cw = mat.new_zeros((rows, pp.m_ext, L))
         cw[:, : pp.m] = mat

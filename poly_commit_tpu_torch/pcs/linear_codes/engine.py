@@ -14,8 +14,9 @@ one K1 product and a log-depth sum of rows. Column hashing and the Merkle
 tree run on the host. ``commit`` takes every column's bytes from the
 device in one pass (``column_leaves``), never through Python ints; the
 leaves are the bytes the JAX package hashes. ``open`` and ``check`` touch
-t columns and stay on Python ints. Left out: the JAX package's mesh
-branches and ``traced`` spans.
+t columns and stay on Python ints. Under an active mesh of more than one
+rank whose axis size divides the rows, v = b^T M shards its rows
+(``parallel.mesh.row_mul_sharded``), as the JAX package's branch does.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ import torch
 
 from ... import device as D
 from ...core import field as F
+from ...core import poly as P
 from ...core.serialize import fields_to_bytes, mont_limbs_to_bytes
+from ...parallel import mesh as PM
 from ...utils.merkle import MerklePath, MerkleTree, blake2s_hash, verify_path
 from ...utils.trace import traced
 from .. import errors
@@ -88,15 +91,15 @@ def column_leaves(spec, ext_mat: torch.Tensor) -> List[bytes]:
 
 
 def _row_mul(spec, vec: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """v^T M: vec (n, L), mat (n, m, L) -> (m, L); log-depth row sum."""
-    prod = F.mont_mul(spec, vec[:, None, :], mat)
-    n = prod.shape[0]
-    while n > 1:
-        half = n // 2
-        head = F.add(spec, prod[:half], prod[half : 2 * half])
-        prod = head if n % 2 == 0 else torch.cat([head, prod[n - 1 :]], 0)
-        n = (n + 1) // 2
-    return prod[0]
+    """v^T M: vec (n, L), mat (n, m, L) -> (m, L); log-depth row sum, the
+    rows sharded over an active mesh of more than one rank whose axis size
+    divides n."""
+    active = PM.active_mesh()
+    if active is not None:
+        mesh, axis = active
+        if mesh.size(axis) > 1 and vec.shape[0] % mesh.size(axis) == 0:
+            return PM.row_mul_sharded(spec, vec, mat, mesh, axis)
+    return P.row_combination(spec, vec, mat)
 
 
 def _ip_ints(spec, a_ints, b_ints) -> int:

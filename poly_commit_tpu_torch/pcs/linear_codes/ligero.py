@@ -8,7 +8,9 @@ Reed-Solomon; rho_inv = 4 univariate, 2 multilinear; sec_param 128;
 well-formedness on). The RS encode (linear_codes/utils.rs:112-127) of all
 rows is one batched limbs-first NTT (core/ntt_lf.py: K4b and K4c, or K4a
 for small matrices) on every device; the JAX package takes that route on
-the TPU only.
+the TPU only. Under an active mesh (one rank included) whose axis size
+divides the rows of a matrix, each rank transforms its rows
+(``parallel.mesh.batch_ntt_sharded``), as the JAX package's branch does.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ...core import ff, ntt_lf
 from ...core import field as F
 from ...core import poly as P
+from ...parallel import mesh as PM
 from ...utils.merkle import MerkleConfig
 from .engine import LinearCodePCS
 from .utils import calculate_t, ceil_div, tensor_vec
@@ -63,10 +66,14 @@ class LigeroPCParams:
 def _rs_encode_rows(mat: torch.Tensor, ck: LigeroPCParams) -> torch.Tensor:
     """Every row of (..., m, L) evaluated over the smallest 2^k >= m rho_inv
     points (linear_codes/utils.rs:112-127): zero-pad, one batched NTT,
-    canonical -> (..., 2^k, L)."""
+    canonical -> (..., 2^k, L); the rows of an (R, m, L) matrix sharded
+    over an active mesh whose axis size divides R."""
     m, L = mat.shape[-2], mat.shape[-1]
     ext = 1 << max(1, (m * ck.rho_inv - 1).bit_length())
     padded = torch.cat([mat, mat.new_zeros(mat.shape[:-2] + (ext - m, L))], -2)
+    active = PM.active_mesh()
+    if active is not None and padded.ndim == 3 and padded.shape[0] % active[0].size(active[1]) == 0:
+        return PM.batch_ntt_sharded(ck.spec, padded, active[0], active[1])
     rows = padded.numel() // (ext * L)
     out = ntt_lf.ntt(ck.spec, ff.from_field_last(padded), rows=rows)
     return ff.to_field_last(ff.canonicalize(ck.spec, out), padded.shape[:-1])

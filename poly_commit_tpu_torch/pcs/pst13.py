@@ -15,8 +15,9 @@ Sparse term bookkeeping (a dict of exponent tuple -> int) runs on the host,
 as in the JAX package; every MSM gathers the term-indexed SRS rows on the
 device (``index_select``) and runs one G1 MSM (K3, K2a). Setup's G1 powers
 over every monomial and the gamma powers are fixed-base multiplications on
-K2a, beta_h one on K2c. The JAX package's mesh branch of ``_term_msm``
-has no counterpart here (one card). The blinding polynomial is restricted
+K2a, beta_h one on K2c. Under an active mesh of more than one rank,
+``_term_msm`` pads and shards its MSM (``parallel.mesh.msm_sharded``), as
+the JAX package's branch does. The blinding polynomial is restricted
 to univariate monomials per variable (constant + sum_i sum_j c_ij x_i^j),
 the gamma-power lookup the reference assumes at mod.rs:380-385.
 """
@@ -35,6 +36,7 @@ from ..core import hostec
 from ..core import msm as M
 from ..core.field_params import FR_BLS12_381
 from ..core.serialize import device_point_to_ints, device_points_to_ints
+from ..parallel import mesh as PM
 from ..utils.trace import traced
 from . import errors, kzg10
 from .curve_ctx import CTX_BLS12_377, CTX_BLS12_381
@@ -339,7 +341,8 @@ class MarlinPST13(PolynomialCommitment):
     @classmethod
     def _term_msm(cls, ck, poly: MVPoly):
         """Gather the term-indexed SRS rows on the device; one G1 MSM
-        (mod.rs:352-364)."""
+        (mod.rs:352-364), sharded over an active mesh of more than one
+        rank."""
         g1, spec = cls.CTX.g1, cls.CTX.spec
         dev = ck.powers_of_g[0].device
         if poly.is_zero():
@@ -352,6 +355,11 @@ class MarlinPST13(PolynomialCommitment):
         idx = torch.tensor(rows, dtype=torch.long, device=dev)
         key = tuple(a.index_select(0, idx) for a in ck.powers_of_g)
         sc = M.scalars_from_ints(spec, poly.terms.values(), dev)
+        active = PM.active_mesh()
+        if active is not None and active[0].size(active[1]) > 1:
+            mesh, axis = active
+            psc, pkey = PM.pad_msm_inputs(g1, sc, key, mesh.size(axis))
+            return PM.msm_sharded(g1, psc, pkey, mesh, axis=axis, assume_distinct=True)
         return M.msm(g1, sc, key, assume_distinct=True)
 
     @classmethod

@@ -884,3 +884,44 @@ def test_persisted_key_loads_onto_card(cuda, tmp_path):
         return kzg10.commit(powers, coeffs.to(dev))[0]
 
     assert commit(back, cuda) == commit(pp, "cpu")
+
+
+
+def _card_msm_case(cuda, n):
+    """tests/torch_mesh_cases.py's n-point MSM on the card, and its
+    single-device result as affine ints."""
+    from poly_commit_tpu_torch.core.serialize import device_point_to_ints
+    from tests import torch_mesh_cases as cases
+
+    sc, pts = cases._msm_tensors(cases.G1, n, n)
+    sc, pts = sc.to(cuda), tuple(a.to(cuda) for a in pts)
+    return cases, sc, pts, device_point_to_ints(cases.G1, msm.msm(cases.G1, sc, pts))
+
+
+@pytest.mark.gpu
+def test_msm_sharded_nccl_world_1_on_card(cuda):
+    """NCCL with one rank, in this process: msm_sharded equals the
+    single-device MSM."""
+    import torch.distributed as dist
+
+    from poly_commit_tpu_torch.core.serialize import device_point_to_ints
+    from poly_commit_tpu_torch.parallel import mesh as PM
+
+    cases, sc, pts, single = _card_msm_case(cuda, 256)
+    mesh = PM.make_mesh(1)
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda" and not mesh.staged
+        assert device_point_to_ints(cases.G1, PM.msm_sharded(cases.G1, sc, pts, mesh)) == single
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_msm_sharded_two_gloo_ranks_share_card(cuda):
+    """Two gloo ranks pinned to cuda:0 (collectives staged through host
+    memory): each returns the single-device MSM."""
+    from poly_commit_tpu_torch.parallel import launch as PL
+
+    cases, _, _, single = _card_msm_case(cuda, 256)
+    got = PL.launch(cases.card_msm, 2, backend="gloo", device="cuda:0", args=(256,), timeout=300)
+    assert got == [single, single]
