@@ -142,6 +142,13 @@ Phases, one JSON line each (times in ms):
      NTT over tp; each equal to the single-device result of this run, with
      the ranks' and the single-device ms (four ranks on one card: not a
      scaling figure).
+  demo: the port's entry point (poly_commit_tpu_torch/demo.py), its ten
+     drives (degree <= 16, 4 variables; setup -> trim -> commit -> open ->
+     check and a tamper probe) in this process on the card, twice (the
+     first run pays each scheme's first calls), every drive OK, the ms by
+     scheme and stage and the launches of each run; then five of them on
+     the CPU (the plain versions), commitments and values equal to the
+     card's.
 Phase 1 also prints a build line: each kernel source's nvcc seconds, per
 kernel entry the registers and spill bytes ptxas reported, and the
 machine instructions (and integer multiply-adds) of the K1, K2a and K4
@@ -151,7 +158,7 @@ and K2b (the four JubJub formulas, and ed_smul, the one-launch scalar
 multiplication, at 2^15 points and at 1, also against the chain of
 ed_double / ed_add launches it replaced) against their plain versions, and
 phase 3 also runs a G2 and a JubJub MSM of 2^10 points against the host.
-Phases 4-15, ark_golden, trace_persist and mesh are the paths: each runs
+Phases 4-15, ark_golden, trace_persist, mesh and demo are the paths: each runs
 with every launch count set to 0 just before it and read just after (the
 mesh phase's ranks count their own and return them); the kernel table sums
 them.
@@ -2703,6 +2710,59 @@ class Smoke:
         return (set(spans) == set(labels) and all(v["host_ms"] > 0 for v in spans.values())
                 and on_card and equal and all_launched)
 
+    # -- demo -------------------------------------------------------------
+    # the drives also run on the CPU (the kernels' plain versions), their
+    # commitments and values held against the card's: the cheap ones, with
+    # the smallest MSMs (Hyrax's rows of 4, IPA's 8 points) and the 16-point
+    # Ligero encodes
+    DEMO_ON_CPU = ("ipa_pc", "univariate_ligero", "multilinear_ligero", "brakedown", "hyrax")
+    # kernels every demo run must launch: K1, K2a's MSM scan and fixed-base
+    # formulas, K2c (the G2 setups), K2b (IPA's key fold), K3 and K4a
+    DEMO_KERNELS = ("ff_mont_mul", "ec_madd_scan", "ec_madd", "ec_g2_madd", "ec_ed_smul",
+                    "digit_sort", "ntt_small")
+
+    def demo_path(self):
+        """The port's entry point (poly_commit_tpu_torch/demo.py): its ten
+        drives in this process on the card, twice (the first run pays each
+        scheme's first calls: tables and caches; the kernels were built in
+        phase 1); each drive OK with its tamper probe rejected, each run's
+        ms by scheme and stage and its launches. Then the DEMO_ON_CPU drives
+        on the CPU, their commitments and values equal to the first run's."""
+        import io
+
+        from poly_commit_tpu_torch import demo
+
+        ok = True
+        first = {}
+        for run in ("first", "second"):
+            out = io.StringIO()
+            self.reset_counts()
+            t0 = time.perf_counter()
+            results = demo.run(device=self.dev, out=out)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches, by_field, _ = self.read_counts(in_sums=False)
+            verdicts = [ln for ln in out.getvalue().splitlines() if ln.startswith(("OK ", "FAIL "))]
+            all_launched = self.all_launched(launches, by_field, self.DEMO_KERNELS)
+            passed = [r.name for r in results] == list(demo.NAMES) and all(r.passed for r in results)
+            emit({"phase": "demo", "run": run, "wall_ms": wall_ms, "verdicts": verdicts,
+                  "scheme_ms": {r.name: r.ms for r in results},
+                  "errors": {r.name: r.error.strip().splitlines()[-1] for r in results if r.error},
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "launches_by_field": by_field, "all_kernels_launched": all_launched})
+            ok = ok and passed and all_launched
+            if run == "first":
+                first = {r.name: r for r in results}
+        cpu_ms, equal = {}, {}
+        for name in self.DEMO_ON_CPU:
+            t0 = time.perf_counter()
+            res = demo.run_scheme(name, "cpu")
+            cpu_ms[name] = (time.perf_counter() - t0) * 1e3
+            card = first[name]
+            equal[name] = (res.passed and res.commitments == card.commitments
+                           and res.values == card.values)
+        emit({"phase": "demo", "held_against_cpu": equal, "cpu_ms": cpu_ms})
+        return ok and all(equal.values())
+
     # -- mesh -------------------------------------------------------------
     def mesh_path(self):
         """The mesh layer (poly_commit_tpu_torch.parallel). First NCCL with
@@ -3064,7 +3124,8 @@ def main() -> int:
                    "brakedown": smoke.brakedown_path(), "hyrax": smoke.hyrax_path(),
                    "pst13": smoke.pst13_path(), "streaming_kzg": smoke.streaming_path(),
                    "r1cs": smoke.r1cs_path(), "device_pairing": smoke.device_pairing_path(),
-                   "trace_persist": smoke.trace_persist(), "mesh": smoke.mesh_path()}
+                   "trace_persist": smoke.trace_persist(), "mesh": smoke.mesh_path(),
+                   "demo": smoke.demo_path()}
         results["kernel_table"] = smoke.finish_table()
         emit({"phase": "k1_launches", "over": "phases 4-8", "by_columns": smoke.size_totals})
         k4c = smoke.k4c_launches

@@ -925,3 +925,15 @@ def test_msm_sharded_two_gloo_ranks_share_card(cuda):
     cases, _, _, single = _card_msm_case(cuda, 256)
     got = PL.launch(cases.card_msm, 2, backend="gloo", device="cuda:0", args=(256,), timeout=300)
     assert got == [single, single]
+
+
+@pytest.mark.gpu
+def test_demo_drives_every_scheme_on_card(cuda, capsys):
+    """The port's entry point (python -m poly_commit_tpu_torch.demo) on the
+    card: ten OK lines, each tamper probe rejected, exit code 0."""
+    from poly_commit_tpu_torch import demo
+
+    assert demo.main([]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln for ln in lines if ln.startswith(("OK ", "FAIL "))] == [f"OK {n}" for n in demo.NAMES]
+    assert len(demo.NAMES) == 10

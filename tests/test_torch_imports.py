@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
-Every ``.py`` file under ``poly_commit_tpu_torch/`` and ``chip_smoke.py`` is
+Every ``.py`` file under ``poly_commit_tpu_torch/`` (the entry point
+``demo.py`` included) and ``chip_smoke.py`` is
 parsed with ``ast``; an ``import`` or ``from ... import`` of ``jax``,
 ``jaxlib`` or ``poly_commit_tpu`` (the package itself or any module of it,
 but not ``poly_commit_tpu_torch``) fails its case. Relative imports stay
@@ -46,3 +47,9 @@ def test_the_guard_tells_the_packages_apart():
 def test_port_file_imports_no_jax(path):
     bad = [n for n in imports_of((ROOT / path).read_text()) if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_entry_point_is_checked():
+    """The port's entry point, run as python -m poly_commit_tpu_torch.demo,
+    is among the parsed files."""
+    assert "poly_commit_tpu_torch/demo.py" in FILES
