@@ -27,6 +27,7 @@ from . import field as F
 from . import field_params as FP
 from . import hostec
 from .field_params import FieldSpec
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +216,7 @@ def affine_from_ints(group, triples, device=None):
     inf = torch.from_numpy(np.asarray([bool(t[2]) for t in triples], dtype=bool))
     conv = E2.from_ints if isinstance(group, G2Group) else F.from_ints
     x = conv(group.spec, xs, device=device)
+    trace.count("host_syncs")
     return (x, conv(group.spec, ys, device=device), inf.to(x.device))
 
 

@@ -54,6 +54,7 @@ import torch
 from .. import device as D
 from . import ff
 from . import field_params as FP
+from ..utils import trace
 from .field_params import FieldSpec
 
 _WHICH = {"madd": 0, "madd_distinct": 1, "madd_packed": 2,
@@ -178,6 +179,7 @@ def _edge_cases(f: _Fx, out, h, r0, x1, y1, z1):
     h_zero = f.is_zero(h)
     r_zero = f.is_zero(r0)
     both = h_zero & r_zero
+    trace.count("host_syncs")
     if bool(both.any()):
         out = _where(both, _double_plain(f, x1, y1, z1), out)
     zero = torch.zeros_like(x1)

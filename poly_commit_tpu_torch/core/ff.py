@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import device as D
+from ..utils import trace
 from .field_params import LIMB_BITS, LIMB_MASK, FieldSpec
 
 MASK = LIMB_MASK
@@ -70,6 +71,7 @@ def _consts_np(spec: FieldSpec):
 
 @functools.lru_cache(maxsize=64)
 def _consts_on(spec: FieldSpec, device: str, which: int) -> torch.Tensor:
+    trace.count("host_syncs")
     return torch.from_numpy(_consts_np(spec)[which]).to(device).view(-1, 1)
 
 
@@ -92,6 +94,7 @@ def needs_post_reduce(spec: FieldSpec) -> bool:
 @functools.lru_cache(maxsize=16)
 def _col_index(la: int, lb: int, device: str) -> torch.Tensor:
     """Column i + j of each product a_i b_j, flattened (i major)."""
+    trace.count("host_syncs")
     return (torch.arange(la).unsqueeze(1) + torch.arange(lb).unsqueeze(0)).reshape(-1).to(device)
 
 
@@ -120,6 +123,7 @@ def _digits(cols: torch.Tensor, chunks: int) -> torch.Tensor:
         out[j:] += (cols[:-j] >> (LIMB_BITS * j)) & MASK
     while True:
         c = out >> LIMB_BITS
+        trace.count("host_syncs")
         if not bool(c.any()):
             return out
         out = out & MASK
@@ -136,6 +140,7 @@ def _carry(cols: torch.Tensor):
     top = torch.zeros_like(cols[0])
     while True:
         c = cols >> LIMB_BITS
+        trace.count("host_syncs")
         if not bool(c.any()):
             return cols, top
         cols = cols & MASK
@@ -519,11 +524,14 @@ def limbs_to_ints(spec: FieldSpec, arr: np.ndarray, mont: bool = True) -> list:
 def from_ints(spec: FieldSpec, ints, mont: bool = True, device=None) -> torch.Tensor:
     """Python ints -> (L, N) canonical Montgomery limbs on ``device``."""
     arr = ints_to_limbs(spec, list(ints), mont).astype(np.int32)
+    trace.count("host_syncs")
     return torch.from_numpy(np.ascontiguousarray(arr.T)).to(D.resolve(device))
 
 
+@trace.traced("Serialize::to_host", log=False)
 def to_ints(spec: FieldSpec, a: torch.Tensor, mont: bool = True) -> list:
     """(L, N) limbs (< 2p) -> canonical Python ints."""
+    trace.count("host_syncs")
     return limbs_to_ints(spec, a.T.cpu().numpy(), mont)
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import device as D
+from ..utils import trace
 from . import ff
 from .field_params import FieldSpec
 
@@ -52,6 +53,7 @@ def neg(spec: FieldSpec, a):
 
 def _const(spec: FieldSpec, value: int, device) -> torch.Tensor:
     limbs = ff.ints_to_limbs(spec, [value], mont=False)[0].astype(np.int32)
+    trace.count("host_syncs")
     return torch.from_numpy(limbs.copy()).to(device)
 
 
@@ -98,14 +100,17 @@ def inv(spec: FieldSpec, a):
 def from_ints(spec: FieldSpec, xs, mont: bool = True, device=None) -> torch.Tensor:
     """Python int(s) -> limb tensor (L,) or (N, L), Montgomery by default."""
     dev = D.resolve(device)
+    trace.count("host_syncs")
     if isinstance(xs, (int, np.integer)):
         return torch.from_numpy(ff.ints_to_limbs(spec, [xs], mont)[0].astype(np.int32)).to(dev)
     arr = ff.ints_to_limbs(spec, list(xs), mont).astype(np.int32)
     return torch.from_numpy(arr).to(dev)
 
 
+@trace.traced("Serialize::to_host", log=False)
 def to_ints(spec: FieldSpec, a: torch.Tensor, mont: bool = True):
     """Limb tensor -> canonical Python ints (an int for (L,), else lists)."""
+    trace.count("host_syncs")
     vals = ff.limbs_to_ints(spec, a.reshape(-1, spec.n_limbs).cpu().numpy(), mont)
     if a.dim() == 1:
         return vals[0]

@@ -15,6 +15,7 @@ Points are (x, y) tuples (ints, or int pairs for Fq2) with None = infinity
 from __future__ import annotations
 
 from . import field_params as FP
+from ..utils import trace
 
 
 class _Fp:
@@ -384,6 +385,7 @@ def host_point_to_device(group, P, device):
     return group.from_affine(conv(group.spec, P[0], device), conv(group.spec, P[1], device))
 
 
+@trace.traced("Serialize::to_host", log=False)
 def device_affine_to_host(group, points) -> list:
     """Device affine (x, y, inf), batch (N,) or () -> list of host points.
 
@@ -393,6 +395,7 @@ def device_affine_to_host(group, points) -> list:
 
     x, y, inf = points
     L = group.spec.n_limbs
+    trace.count("host_syncs", 3)  # x, y and inf
     xs, ys = (ff.limbs_to_ints(group.spec, a.reshape(-1, L).cpu().numpy()) for a in (x, y))
     if _is_g2(group):
         xs, ys = list(zip(xs[0::2], xs[1::2])), list(zip(ys[0::2], ys[1::2]))

@@ -16,6 +16,7 @@ import torch
 from . import field as F
 from . import msm_gpu
 from .field_params import FieldSpec
+from ..utils import trace
 
 
 def _ops(group):
@@ -67,6 +68,7 @@ def fixed_base_mul(group, base, scalars: torch.Tensor):
     ops = _ops(group)
     bx, by, binf = group.to_affine(base)
     n = scalars.shape[0]
+    trace.count("host_syncs")
     if bool(binf):
         return group.infinity((n,), bx.device)
     out = msm_gpu.fixed_base(group, ops.to_lf(bx[None]), ops.to_lf(by[None]), scalars)

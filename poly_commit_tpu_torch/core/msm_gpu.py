@@ -60,6 +60,7 @@ from . import ff
 from . import hostec
 from . import sort_gpu
 from .field_params import FieldSpec
+from ..utils import trace
 
 SCALAR_BITS = 256
 CHUNK = 1 << 20  # points per MSM call: the kept prefixes take ~4.8 GB at 2^20
@@ -355,6 +356,7 @@ def _msm_body(spec: FieldSpec, ops, digs, x, y, assume_distinct: bool, c: int, t
     return g_last + sum_g
 
 
+@trace.traced("MSM::fold_host", log=False)
 def _fold_host(group, ops, parts, c: int):
     """S_w = (2^c - 1) G_last - sum G per window, then the Horner fold over
     windows, on host ints (a few dozen points). Returns a host point."""
@@ -371,6 +373,7 @@ def _fold_host(group, ops, parts, c: int):
     return acc
 
 
+@trace.traced("MSM::msm", log=False)
 def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
     """sum_i scalars[i] * (x_i, y_i): scalars (N, 16) int32 plain limbs,
     x, y (rows, N) affine Montgomery limbs (2L rows, c0 over c1, in G2),
@@ -400,6 +403,7 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
         x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
         y = torch.cat([y, y.new_zeros((y.shape[0], pad))], 1)
         inf = torch.cat([inf, inf.new_ones((pad,))], 0)
+    trace.count("msm_points_run", n2)
     parts = _msm_body(spec, ops, _window_digits(scalars, inf, c), x, y, assume_distinct, c,
                       t_lanes)
     return ops.from_host(spec, _fold_host(group, ops, parts, c), dev)
@@ -435,6 +439,7 @@ def _combine_device(spec: FieldSpec, ops, parts, c: int):
     return ops.add(spec, acc, EC.neg(spec, ops.add(spec, g_last, sum_g)))
 
 
+@trace.traced("MSM::fold_device", log=False)
 def fold_device(spec: FieldSpec, ops, parts, c: int, rows: int):
     """The window fold of ``rows`` MSMs on the device, the counterpart of
     msm_tpu._combine_sw_device and _fold_device batched over rows: parts
@@ -457,6 +462,7 @@ def fold_device(spec: FieldSpec, ops, parts, c: int, rows: int):
     return cur
 
 
+@trace.traced("MSM::msm_rows", log=False)
 def msm_rows(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
     """B MSMs over the same N bases: row b is sum_i scalars[b, i] *
     (x_i, y_i). scalars (B, N, 16) int32 plain limbs; x, y (L, N) affine
@@ -486,6 +492,7 @@ def msm_rows(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = Fa
         x = torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
         y = torch.cat([y, y.new_zeros((y.shape[0], pad))], 1)
         inf = torch.cat([inf, inf.new_ones((pad,))], 0)
+    trace.count("msm_points_run", b_rows * n2)
     w_count = SCALAR_BITS // c
     per_chunk = max(1, min(CHUNK // n2, MAX_ROW_WINDOWS // w_count))
     parts = []
@@ -524,6 +531,7 @@ def jacobian_to_affine_fq2(spec: FieldSpec, p):
 # ---------------------------------------------------------------------------
 
 
+@trace.traced("MSM::fixed_base", log=False)
 def fixed_base(group, gx, gy, scalars: torch.Tensor):
     """[s_i * g] in a Jacobian group (G1 or G2): gx, gy (rows, 1) affine
     limbs of g (not infinity), scalars (N, 16) int32 plain. Returns Jacobian

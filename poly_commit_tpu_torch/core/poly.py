@@ -10,7 +10,9 @@ here, so they run in log depth and give the same field values:
 product and a tree or suffix sum; ``long_divide`` on Newton's iteration for
 the inverse of the reversed divisor, over ``mul``'s NTT products (K4 and
 K1). ``vanishing_poly`` and ``lagrange_interpolate`` loop over their few
-points, as the JAX scans do.
+points, as the JAX scans do. The divisions, evaluations and eq tables are
+the spans ``Poly::divide``, ``Poly::evaluate`` and ``Poly::tensor``
+(utils/trace.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from . import ff
 from . import field as F
+from ..utils import trace
 from . import ntt_lf as NL
 from .field_params import FieldSpec
 
@@ -43,6 +46,7 @@ def mle_fold(spec: FieldSpec, table: torch.Tensor, z: torch.Tensor) -> torch.Ten
     return F.add(spec, even, F.mont_mul(spec, F.sub(spec, odd, even), z))
 
 
+@trace.traced("Poly::evaluate", log=False)
 def mle_evaluate(spec: FieldSpec, table: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     """The multilinear extension of table (2^nv, L) at point (nv, L)."""
     for i in range(point.shape[0]):
@@ -50,6 +54,7 @@ def mle_evaluate(spec: FieldSpec, table: torch.Tensor, point: torch.Tensor) -> t
     return table[..., 0, :]
 
 
+@trace.traced("Poly::tensor", log=False)
 def eq_table(spec: FieldSpec, point: torch.Tensor) -> torch.Tensor:
     """eq(point, b) over the boolean hypercube, (nv, L) -> (2^nv, L):
     out[b] = prod_i ((1 - z_i)(1 - b_i) + z_i b_i), variable i at index
@@ -63,6 +68,7 @@ def eq_table(spec: FieldSpec, point: torch.Tensor) -> torch.Tensor:
     return t
 
 
+@trace.traced("Poly::tensor", log=False)
 def tensor_lsb(spec: FieldSpec, point: torch.Tensor) -> torch.Tensor:
     """(1 - z_i, z_i) tensor with variable i at index bit i (= eq_table)."""
     return eq_table(spec, point)
@@ -84,6 +90,7 @@ def row_combination(spec: FieldSpec, vec: torch.Tensor, mat: torch.Tensor) -> to
     return _tree_sum(spec, F.mont_mul(spec, vec[:, None, :], mat))
 
 
+@trace.traced("Poly::evaluate", log=False)
 def evaluate(spec: FieldSpec, coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """p(x) for coeffs (D, L) and one point x (L,): sum_k c_k x^k."""
     if coeffs.shape[0] == 0:
@@ -111,6 +118,7 @@ def shift(a: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([a.new_zeros((k,) + a.shape[1:]), a], 0)
 
 
+@trace.traced("Poly::divide", log=False)
 def divide_by_linear(spec: FieldSpec, coeffs: torch.Tensor, z: torch.Tensor):
     """Synthetic (Ruffini) division by (X - z) for short inputs:
     coeffs (D, L) -> (quotient (D-1, L), remainder (L,))."""
@@ -144,6 +152,7 @@ def linear_tables(spec: FieldSpec, z_int: int, n: int, device):
     return powers(spec, z, n), powers(spec, zinv, n)
 
 
+@trace.traced("Poly::divide", log=False)
 def divide_by_linear_int(spec: FieldSpec, coeffs: torch.Tensor, z_int: int, tables=None):
     """divide_by_linear for a host-int point z, in log depth:
         w_i = z^{-(i+1)} S_{i+1},  S_i = sum_{k >= i} c_k z^k,  rem = S_0.

@@ -19,6 +19,7 @@ import torch
 from . import ff
 from . import field as F
 from . import hostec
+from ..utils import trace
 from .field_params import FieldSpec
 
 
@@ -243,6 +244,7 @@ def zcash_g2_to_bytes(point, q: int) -> bytes:
     return bytes(out)
 
 
+@trace.traced("Serialize::to_host", log=False)
 def mont_limbs_to_bytes(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
     """(L, N) Montgomery limbs (< 2p) -> (N, serialized_size) uint8: row i
     is field_to_bytes of element i. Out of Montgomery form by one K1
@@ -251,10 +253,12 @@ def mont_limbs_to_bytes(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
     one = ff.from_ints(spec, [1], mont=False, device=a.device)
     v = ff.canonicalize(spec, ff.mont_mul(spec, a, one.expand_as(a).contiguous()))
     v16 = torch.where(v >= 1 << 15, v - (1 << 16), v).to(torch.int16).T.contiguous()
+    trace.count("host_syncs")
     raw = v16.cpu().numpy().view(np.uint8)  # (N, 2L): LE limbs are LE bytes
     return raw[:, : spec.serialized_size()]
 
 
+@trace.traced("Serialize::to_host", log=False)
 def device_point_to_ints(group, pt_proj):
     """Projective device point (coords (L,)) -> (x, y, inf) Python ints.
 
@@ -266,15 +270,18 @@ def device_point_to_ints(group, pt_proj):
     return (zero, zero, True) if P is None else (P[0], P[1], False)
 
 
+@trace.traced("Serialize::to_host", log=False)
 def device_points_to_ints(group, pts_proj):
     """Batched projective points -> list of (x, y, inf) int triples, with
     one batched inversion on the device (G2 coordinates as (c0, c1))."""
     x, y, inf = group.to_affine(pts_proj)
     if hostec._is_g2(group):
         L = group.spec.n_limbs
+        trace.count("host_syncs", 2)
         xs, ys = (ff.limbs_to_ints(group.spec, a.reshape(-1, L).cpu().numpy()) for a in (x, y))
         xs, ys = list(zip(xs[0::2], xs[1::2])), list(zip(ys[0::2], ys[1::2]))
     else:
         xs = F.to_ints(group.spec, x)
         ys = F.to_ints(group.spec, y)
+    trace.count("host_syncs")
     return list(zip(xs, ys, inf.cpu().tolist()))

@@ -35,6 +35,7 @@ import functools
 import torch
 
 from .. import device as D
+from ..utils import trace
 
 MAX_PASS_BITS = 9  # a pass's histogram (2^9 bins) stays in shared memory
 
@@ -89,7 +90,10 @@ def digit_sort(keys: torch.Tensor, sentinel: int):
         _check_range(keys, sentinel)
         return _plain(keys, sentinel)
     order, sorted_keys, incl, bad = _launch(keys, sentinel)
-    if int(bad.item()):
+    with trace.scope("Serialize::to_host", log=False):
+        trace.count("host_syncs")
+        bad = int(bad.item())
+    if bad:
         raise ValueError(f"keys must lie in [0, {sentinel}]")
     return order, sorted_keys, incl
 

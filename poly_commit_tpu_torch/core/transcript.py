@@ -5,7 +5,10 @@ sponge is tiny and sequential, so it runs on host Python ints; only
 ``absorb_device_field`` touches tensors. Parameters are derived from the
 field modulus with SHAKE-256 (alpha = 17, 8 full + 31 partial rounds, rate 2,
 capacity 1, a Cauchy MDS), bit for bit as in the JAX package, so both
-packages squeeze the same challenges from the same absorbs.
+packages squeeze the same challenges from the same absorbs. The public
+absorbs and squeezes are the spans ``Transcript::absorb`` and
+``Transcript::squeeze``, and each permutation counts one
+``poseidon_permutations`` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -15,8 +18,12 @@ import hashlib
 
 import numpy as np
 
+from ..utils import trace
 from . import field as F
 from .field_params import FieldSpec
+
+ABSORB = "Transcript::absorb"
+SQUEEZE = "Transcript::squeeze"
 
 ALPHA = 17
 FULL_ROUNDS = 8
@@ -77,6 +84,7 @@ class PoseidonSponge:
         squarings and a product, each round constant added unreduced and
         reduced by the product that follows: the same state as the JAX
         package's round-by-round form, with fewer Python operations."""
+        trace.count("poseidon_permutations")
         p = self.p
         (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = self.mds
         s0, s1, s2 = self.state
@@ -99,8 +107,12 @@ class PoseidonSponge:
         self.state = [s0, s1, s2]
 
     # -- absorbing --
+    @trace.traced(ABSORB, log=False)
     def absorb_field(self, elems):
         """Absorb an iterable of python-int field elements."""
+        self._absorb(elems)
+
+    def _absorb(self, elems):
         if self.mode != "absorb":
             self.mode = "absorb"
             self.pos = 0
@@ -113,6 +125,7 @@ class PoseidonSponge:
             ) % self.p
             self.pos += 1
 
+    @trace.traced(ABSORB, log=False)
     def absorb_bytes(self, data: bytes):
         """Pack bytes into field elements ((num_bits-1)//8 bytes each, LE)."""
         chunk = max(1, (self.spec.num_bits - 1) // 8)
@@ -121,16 +134,17 @@ class PoseidonSponge:
             for i in range(0, len(data), chunk)
         ]
         # length domain-separation so absorb(b"ab")+absorb(b"c") != absorb(b"abc")
-        self.absorb_field([len(data)])
-        self.absorb_field(elems)
+        self._absorb([len(data)])
+        self._absorb(elems)
 
+    @trace.traced(ABSORB, log=False)
     def absorb_device_field(self, spec: FieldSpec, arr):
         """Absorb field elements held in a (..., L) Montgomery limb tensor."""
         vals = F.to_ints(spec, arr)
         if isinstance(vals, int):
             vals = [vals]
         flat = np.asarray(vals, dtype=object).ravel().tolist()
-        self.absorb_field(flat)
+        self._absorb(flat)
 
     # -- squeezing --
     def _squeeze_elems(self, n):
@@ -147,10 +161,12 @@ class PoseidonSponge:
             self.pos += 1
         return out
 
+    @trace.traced(SQUEEZE, log=False)
     def squeeze_field(self, n=1):
         """n full field elements (python ints)."""
         return self._squeeze_elems(n)
 
+    @trace.traced(SQUEEZE, log=False)
     def squeeze_bits(self, nbits):
         per = self.spec.num_bits - 1
         n = -(-nbits // per)
@@ -160,16 +176,19 @@ class PoseidonSponge:
             bits.extend((e >> i) & 1 for i in range(per))
         return bits[:nbits]
 
+    @trace.traced(SQUEEZE, log=False)
     def squeeze_bytes(self, nbytes):
         bits = self.squeeze_bits(8 * nbytes)
         return bytes(
             sum(bits[8 * i + j] << j for j in range(8)) for i in range(nbytes)
         )
 
+    @trace.traced(SQUEEZE, log=False)
     def squeeze_challenge_128(self):
         """The reference's Truncated(128) opening challenge (lib.rs:580)."""
         bits = self.squeeze_bits(CHALLENGE_BITS)
         return sum(b << i for i, b in enumerate(bits))
 
+    @trace.traced(SQUEEZE, log=False)
     def squeeze_challenges_128(self, n):
         return [self.squeeze_challenge_128() for _ in range(n)]

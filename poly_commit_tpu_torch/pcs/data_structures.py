@@ -24,6 +24,7 @@ import torch
 from ..core import field as F
 from ..core.field_params import FieldSpec
 from ..core.transcript import PoseidonSponge
+from ..utils.trace import traced
 from . import errors
 
 # ---------------------------------------------------------------------------
@@ -429,6 +430,7 @@ class PolynomialCommitment:
 
     # -- defaults --------------------------------------------------------
     @classmethod
+    @traced("PC::batch_open", log=False)
     def batch_open(cls, ck, polynomials, commitments, query_set, sponge, states, rng=None):
         """Group the query set by point; one ``open`` per point (lib.rs:269)."""
         polys = {p.label: p for p in polynomials}

@@ -40,7 +40,7 @@ from ..core import msm as M
 from ..core import poly as P
 from ..core.serialize import device_point_to_ints, device_points_to_ints, point_to_bytes
 from ..parallel import mesh as PM
-from ..utils.trace import traced
+from ..utils.trace import scope, traced
 from . import errors
 from .data_structures import LabeledCommitment, PolynomialCommitment
 
@@ -125,6 +125,7 @@ def _fsum0(a: torch.Tensor) -> torch.Tensor:
     return a[0]
 
 
+@traced("Poly::combine", log=False)
 def _ip(a: torch.Tensor, b: torch.Tensor) -> int:
     return F.to_ints(SPEC, _fsum0(F.mont_mul(SPEC, a, b)))
 
@@ -142,13 +143,15 @@ def _absorb_point(sponge, triple):
 
 
 def _absorb_statement(sponge, key, row_coms, point):
-    """The key, the row commitments and the point (mod.rs:330-341)."""
-    for gpt in key.com_key_host:
-        _absorb_point(sponge, (gpt[0], gpt[1], False))
-    _absorb_point(sponge, (key.h[0], key.h[1], False))
-    for rc in row_coms:
-        _absorb_point(sponge, rc)
-    sponge.absorb_field([int(v) % SPEC.modulus for v in point])
+    """The key, the row commitments and the point (mod.rs:330-341): one
+    ``Transcript::absorb`` span."""
+    with scope("Transcript::absorb", log=False):
+        for gpt in key.com_key_host:
+            _absorb_point(sponge, (gpt[0], gpt[1], False))
+        _absorb_point(sponge, (key.h[0], key.h[1], False))
+        for rc in row_coms:
+            _absorb_point(sponge, rc)
+        sponge.absorb_field([int(v) % SPEC.modulus for v in point])
 
 
 def _tensors(point, device):
@@ -239,9 +242,10 @@ class HyraxPC(PolynomialCommitment):
             _absorb_statement(sponge, ck, lcm.commitment.row_coms, point)
 
             # lt = l^T M; r_lt = <l, randomness>; eval = <lt, r>
-            lt = _fsum0(F.mont_mul(SPEC, l[:, None, :], st.mat))  # (dim, L)
-            r_lt = _ip(l, st.randomness)
-            eval_int = _ip(lt, r)
+            with scope("Poly::combine", log=False):
+                lt = _fsum0(F.mont_mul(SPEC, l[:, None, :], st.mat))  # (dim, L)
+                r_lt = _ip(l, st.randomness)
+                eval_int = _ip(lt, r)
 
             r_eval = rng.field_int(SPEC)
             g0 = ck.com_key_host[0]

@@ -34,6 +34,7 @@ from ..core import hostec
 from ..core import pairing as PR
 from ..core.serialize import device_point_to_ints
 from ..parallel import mesh as PM
+from ..utils import trace
 from ..utils.trace import traced
 from . import errors
 from .curve_ctx import CTX_BLS12_381, CurveCtx, pairing_backend  # noqa: F401  (JAX's name)
@@ -173,6 +174,7 @@ def affine_at(group, points, indices) -> list:
     """Host int triples of a device affine batch's points at ``indices``,
     gathered on the device first, so only those points reach the host
     (trim's shift powers out of a full-size SRS)."""
+    trace.count("host_syncs")
     idx = torch.tensor(list(indices), dtype=torch.long, device=points[0].device)
     pts = hostec.device_affine_to_host(group, tuple(a[idx] for a in points))
     return [hostec.host_to_triple(P, fq2=hostec._is_g2(group)) for P in pts]

@@ -117,17 +117,22 @@ def _check_degrees_and_bounds(supported_degree, max_degree, enforced_bounds, lp)
             raise errors.UnsupportedDegreeBound(bound)
 
 
+@traced("Poly::combine", log=False)
 def _scale_poly(coeffs, k_int, spec=SPEC):
     return P.scale(spec, coeffs, F.from_ints(spec, k_int, device=coeffs.device))
+
+
+@traced("Poly::combine", log=False)
+def _combine(acc: Optional[torch.Tensor], coeffs: torch.Tensor, k_int, spec=SPEC):
+    """acc + k * coeffs (acc None: k * coeffs)."""
+    scaled = _scale_poly(coeffs, k_int, spec)
+    return scaled if acc is None else P.add(spec, acc, scaled)
 
 
 def _add_rand(acc: Optional[torch.Tensor], blind: Optional[torch.Tensor], k_int,
               spec=SPEC):
     """acc += k * blind on blinding polynomials (None = zero)."""
-    if blind is None:
-        return acc
-    scaled = _scale_poly(blind, k_int, spec)
-    return scaled if acc is None else P.add(spec, acc, scaled)
+    return acc if blind is None else _combine(acc, blind, k_int, spec)
 
 
 class MarlinKZG10(PolynomialCommitment):
@@ -234,8 +239,7 @@ class MarlinKZG10(PolynomialCommitment):
                 ck.supported_degree, ck.max_degree, ck.enforced_degree_bounds, lp
             )
             c_j = sponge.squeeze_challenge_128()
-            scaled = _scale_poly(lp.poly, c_j, spec)
-            p_comb = scaled if p_comb is None else P.add(spec, p_comb, scaled)
+            p_comb = _combine(p_comb, lp.poly, c_j, spec)
             r_comb = _add_rand(r_comb, st.rand.blinding_polynomial, c_j, spec)
 
             if lp.degree_bound is not None:
@@ -244,12 +248,7 @@ class MarlinKZG10(PolynomialCommitment):
                 witness, _ = kzg10._divide_auto(spec, lp.poly, z, z_int)
                 largest = ck.enforced_degree_bounds[-1]
                 shifted_witness = P.shift(witness, largest - lp.degree_bound)
-                shifted_w = (
-                    _scale_poly(shifted_witness, c_j1, spec)
-                    if shifted_w is None
-                    else P.add(spec, shifted_w,
-                               _scale_poly(shifted_witness, c_j1, spec))
-                )
+                shifted_w = _combine(shifted_w, shifted_witness, c_j1, spec)
                 sr = st.shifted_rand
                 shifted_r = _add_rand(shifted_r, sr.blinding_polynomial, c_j1, spec)
                 if sr.blinding_polynomial is not None:
