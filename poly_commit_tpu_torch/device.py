@@ -6,8 +6,11 @@ Entry points take ``device=None`` and then run on ``DEFAULT_DEVICE``
 compiled by nvcc for sm_90a into a shared library under ``_build/`` (named by
 a hash of the sources, so an edit rebuilds it) and loaded with ctypes.
 ``build()`` starts one nvcc per source, all at once, and waits for them;
-``BUILD_SECONDS`` keeps each source's nvcc wall seconds and
+``BUILD_SECONDS`` keeps each source's wall seconds and
 ``ptxas_report`` reads the registers and spills ptxas printed per kernel.
+The host code in ``csrc/`` (``HOST_SOURCES``: the Poseidon sponge,
+``poseidon.cpp``) is plain C++ built the same way by the host compiler,
+with no nvcc, so it builds on a machine without the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -34,8 +37,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_SOURCES = ("poseidon",)  # csrc/<name>.cpp, built by the host compiler
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
 _LIBS: dict = {}
-BUILD_SECONDS: dict = {}  # source -> nvcc wall seconds of its build in this process
+BUILD_SECONDS: dict = {}  # source -> wall seconds of its build in this process
 
 
 def resolve(device=None) -> torch.device:
@@ -51,6 +57,15 @@ def nvcc_path() -> str:
         if root and Path(root, "bin", "nvcc").exists():
             return str(Path(root, "bin", "nvcc"))
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def cxx_path() -> str:
+    """The host C++ compiler (nvcc's host compiler on a CUDA machine)."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++, g++) found: the host code cannot be built")
 
 
 def toolchain() -> dict:
@@ -73,33 +88,44 @@ def toolchain() -> dict:
 
 def library_path(name: str) -> Path:
     """Where the library of source ``name`` is (or will be) built: named by a
-    hash of the flags and every source, so an edit rebuilds it."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
-        if f.suffix in (".cu", ".cuh"):
-            h.update(f.name.encode() + f.read_bytes())
+    hash of the flags and the sources it is built from (every CUDA source
+    for a kernel library, its own file for host code), so an edit rebuilds
+    it."""
+    if name in HOST_SOURCES:
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+        h.update((CSRC / f"{name}.cpp").read_bytes())
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in sorted(CSRC.iterdir()):
+            if f.suffix in (".cu", ".cuh"):
+                h.update(f.name.encode() + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build_command(name: str, out: Path) -> list:
+    if name in HOST_SOURCES:
+        return [cxx_path(), *HOST_FLAGS, "-o", str(out), str(CSRC / f"{name}.cpp")]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def build(names=SOURCES) -> float:
     """Compile the named sources that are not built yet, in parallel.
 
-    Returns the wall seconds spent; raises with nvcc's output on failure.
+    Returns the wall seconds spent; raises with the compiler's output on
+    failure.
     Each library is written under a temporary name and renamed, so a
     concurrent reader never loads a half-written file.
     """
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
     procs = []
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = _build_command(name, tmp)
         log = open(BUILD_DIR / f"{name}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []
@@ -121,7 +147,7 @@ def build(names=SOURCES) -> float:
             time.sleep(0.05)
     if failed:
         msgs = [(BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed]
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(msgs))
+        raise RuntimeError(f"build failed for {failed}:\n" + "\n".join(msgs))
     return time.perf_counter() - t0
 
 
@@ -194,7 +220,7 @@ def build_log(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` (built first if needed)."""
+    """The loaded library ``name`` (built first if needed)."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])

@@ -14,8 +14,9 @@ window fold on the device per chunk of rows, kernels K3, K2a and K1),
 adds the hiding terms h r_i (``fixed_base_mul``, one K2a ``add``) and
 normalises all rows in one batched inversion. Open's lt = l^T M is one K1
 product and log2(dim) K1 additions; inner products are a product and a
-halving sum. Hash-to-curve, the Poseidon transcript and the verifier's
-O(1) algebra run on host ints. Under an active mesh whose axis size
+halving sum. Hash-to-curve and the verifier's O(1) algebra run on host
+ints, the Poseidon transcript in the native host sponge (the statement's
+points in one crossing). Under an active mesh whose axis size
 divides the row count, the row commitments shard their rows over the ranks
 (``parallel.mesh.batch_msm_sharded``), as the JAX package's branch does.
 
@@ -144,13 +145,12 @@ def _absorb_point(sponge, triple):
 
 def _absorb_statement(sponge, key, row_coms, point):
     """The key, the row commitments and the point (mod.rs:330-341): one
-    ``Transcript::absorb`` span."""
+    ``Transcript::absorb`` span, the points in one crossing into the sponge."""
     with scope("Transcript::absorb", log=False):
-        for gpt in key.com_key_host:
-            _absorb_point(sponge, (gpt[0], gpt[1], False))
-        _absorb_point(sponge, (key.h[0], key.h[1], False))
-        for rc in row_coms:
-            _absorb_point(sponge, rc)
+        points = [(x, y, False) for (x, y) in key.com_key_host]
+        points.append((key.h[0], key.h[1], False))
+        points.extend(row_coms)
+        sponge.absorb_bytes_many([point_to_bytes(GROUP, pt) for pt in points])
         sponge.absorb_field([int(v) % SPEC.modulus for v in point])
 
 
