@@ -84,6 +84,7 @@ def _tree_sum(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
     return t[0]
 
 
+@trace.traced("Poly::combine", log=False)
 def row_combination(spec: FieldSpec, vec: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """v^T M for vec (n, L) and mat (n, m, L) -> (m, L): one product and a
     log-depth sum of the rows (the linear codes' v = b^T M)."""

@@ -17,6 +17,12 @@ leaves are the bytes the JAX package hashes. ``open`` and ``check`` touch
 t columns and stay on Python ints. Under an active mesh of more than one
 rank whose axis size divides the rows, v = b^T M shards its rows
 (``parallel.mesh.row_mul_sharded``), as the JAX package's branch does.
+
+Quiet spans (utils/trace.py): ``LinearCode::encode`` around the row encode,
+``Merkle::leaves`` around the column hashes (its read from the card is a
+``Serialize::to_host`` child), ``Merkle::tree`` around each tree build
+(utils/merkle.py) and around an opening's loop over its paths. The counter
+``hashed_bytes`` counts the bytes given to Blake2s and SHA-256.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ...core import field as F
 from ...core import poly as P
 from ...core.serialize import fields_to_bytes, mont_limbs_to_bytes
 from ...parallel import mesh as PM
+from ...utils import trace
 from ...utils.merkle import MerklePath, MerkleTree, blake2s_hash, verify_path
 from ...utils.trace import traced
 from .. import errors
@@ -84,10 +91,13 @@ def column_bytes(spec, ext_mat: torch.Tensor):
     return mont_limbs_to_bytes(spec, by_col).reshape(n_ext, -1)
 
 
+@trace.traced("Merkle::leaves", log=False)
 def column_leaves(spec, ext_mat: torch.Tensor) -> List[bytes]:
     """Blake2s of each column of (n_rows, n_ext, L): ``_col_hash`` of its
     canonical ints."""
-    return [blake2s_hash(col.tobytes()) for col in column_bytes(spec, ext_mat)]
+    cols = column_bytes(spec, ext_mat)
+    trace.count("hashed_bytes", cols.size)
+    return [blake2s_hash(col.tobytes()) for col in cols]
 
 
 def _row_mul(spec, vec: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
@@ -143,7 +153,8 @@ class LinearCodePCS(PolynomialCommitment):
             if coeffs.shape[0] < total:
                 coeffs = torch.cat([coeffs, coeffs.new_zeros((total - coeffs.shape[0], spec.n_limbs))])
             mat = coeffs.reshape(n_rows, n_cols, spec.n_limbs)  # row-major
-            ext_mat = cls.code.encode_rows(mat, ck)  # (n_rows, ext, L)
+            with trace.scope("LinearCode::encode", log=False):
+                ext_mat = cls.code.encode_rows(mat, ck)  # (n_rows, ext, L)
             leaves = column_leaves(spec, ext_mat)
             tree = MerkleTree(leaves, ck.merkle_config())
             md = Metadata(n_rows, n_cols, int(ext_mat.shape[1]))
@@ -178,7 +189,8 @@ class LinearCodePCS(PolynomialCommitment):
             indices = get_indices_from_sponge(md.n_ext_cols, t, sponge)
             picked = st.ext_mat[:, torch.tensor(indices, device=dev)]  # (n_rows, t, L)
             columns = F.to_ints(spec, picked.transpose(0, 1))
-            paths = [tree.generate_proof(i) for i in indices]
+            with trace.scope("Merkle::tree", log=False):
+                paths = [tree.generate_proof(i) for i in indices]
             proof_array.append(LinCodePCProof(
                 opening=LinCodePCProofSingle(paths=paths, v=v, columns=columns),
                 well_formedness=well_formedness))

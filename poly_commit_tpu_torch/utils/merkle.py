@@ -6,6 +6,8 @@ linear_codes/mod.rs:506-521 and :443-451) without its native C++ batch
 hasher: identity leaf hash, SHA-256 two-to-one compression and a Blake2s
 column hash by default, the reference's test configuration. The roots are
 the JAX package's, which hashes the same bytes with the same functions.
+A tree build is the quiet span ``Merkle::tree`` and counts 64 bytes a
+compression in ``hashed_bytes`` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from typing import Callable, List
+
+from . import trace
 
 
 def sha256_compress(left: bytes, right: bytes) -> bytes:
@@ -53,12 +57,14 @@ class MerkleTree:
         n = max(1, len(leaves))
         size = 1 << (n - 1).bit_length()
         padded = list(leaves) + [b""] * (size - len(leaves))
-        level = [self.config.leaf_hash(leaf) for leaf in padded]
-        self.levels = [level]
-        while len(level) > 1:
-            level = [self.config.compress(level[i], level[i + 1])
-                     for i in range(0, len(level), 2)]
-            self.levels.append(level)
+        with trace.scope("Merkle::tree", log=False):
+            level = [self.config.leaf_hash(leaf) for leaf in padded]
+            self.levels = [level]
+            while len(level) > 1:
+                level = [self.config.compress(level[i], level[i + 1])
+                         for i in range(0, len(level), 2)]
+                self.levels.append(level)
+            trace.count("hashed_bytes", 64 * (size - 1))
 
     @property
     def root(self) -> bytes:
