@@ -23,7 +23,11 @@ Phases, one JSON line each (times in ms):
      256 steps x 2^16 lanes, at a chunk of Hyrax's batched MSM, 128 steps
      x 2^18 lanes over 2^11 BN254 points, and at 16 steps x 2^10 lanes
      over 64 BLS12-377 points (the complete madd's edge lanes at 16
-     steps), timed beside the loop of launches it replaced; K3,
+     steps), timed beside the loop of launches it replaced, and
+     window_fold, an MSM's window fold in one launch, as group elements at
+     the MSMs' shapes (one BLS12-381 row at c = 16 and at c = 4, 2^11 BN254
+     rows at c = 8, one BLS12-377 row at c = 16), timed beside the tree of
+     launches it replaced; K3,
      the stable digit sort, index for index at the 2^20 MSM's (16, 2^20)
      keys, the c = 8 MSMs' (32, 2^15) and a chunk of Hyrax's batched MSM
      (2^14, 2^11); K4a/K4b/K4c the NTT stages on the
@@ -448,8 +452,10 @@ class Smoke:
     NTT_SMALL_LOG_N = 9  # phase 5's K4a transform
     # the K2a entries the main path runs: fixed-base setup's madd and
     # madd_distinct, the MSMs' scan, the lane tree's and Abel sums' add, and
-    # setup's doublings (the packed formulas ran the scan before madd_scan)
-    MAIN_PATH_EC = ("ec_madd", "ec_madd_distinct", "ec_add", "ec_double", "ec_madd_scan")
+    # setup's doublings (the packed formulas ran the scan before madd_scan),
+    # and the MSMs' window fold
+    MAIN_PATH_EC = ("ec_madd", "ec_madd_distinct", "ec_add", "ec_double", "ec_madd_scan",
+                    "ec_window_fold")
     MAX_K4C_LAUNCHES = 20  # phases 4-8, with several K4c stages a launch
     MAX_PACKED_MADD_LAUNCHES = 8  # phase 4: the G1 MSMs scan in madd_scan
 
@@ -487,6 +493,7 @@ class Smoke:
                         "inv": "poly_commit_tpu_torch/csrc/ff.cu",
                         "sum": "poly_commit_tpu_torch/csrc/ff.cu",
                         "ec": "poly_commit_tpu_torch/csrc/ec_g1.cu",
+                        "fold": "poly_commit_tpu_torch/csrc/ec_g1.cu",
                         "g2": "poly_commit_tpu_torch/csrc/ec_g2.cu",
                         "ed": "poly_commit_tpu_torch/csrc/ec_ed.cu",
                         "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu",
@@ -501,6 +508,9 @@ class Smoke:
                          "ec": "poly_commit_tpu/core/ec_lf.py:455",
                          # madd_scan: msm_tpu.py:506's lax.scan runs K2a once a step
                          "scan": "poly_commit_tpu/core/ec_lf.py:455",
+                         # window_fold: _combine_sw_device and _fold_device
+                         # run K2a once a doubling or add
+                         "fold": "poly_commit_tpu/core/msm_tpu.py:622",
                          "g2": "poly_commit_tpu/core/ec_lf.py:455",
                          "ed": "poly_commit_tpu/core/ec_lf.py:455",
                          "digit": "poly_commit_tpu/core/sort_tpu.py:141",
@@ -922,6 +932,86 @@ class Smoke:
         for group in (curve.BLS12_381_G1, curve.BN254_G1, curve.BLS12_377_G1):
             ok &= self.check_ec_formulas(group)
             ok &= self.check_ec_scan(group.spec, *self.SCAN_SHAPES[group.spec.name])
+            ok &= self.check_ec_fold(group)
+        return ok
+
+    # the window fold at the shapes of the paths, (c, rows): Marlin's SRS
+    # MSMs (c = 16) and hiding MSMs (c = 4), one row each; Hyrax's 2^11 row
+    # MSMs at c = 8; PST13's BLS12-377 MSMs at c = 16
+    FOLD_SHAPES = {"fq_bls12_381": ((16, 1), (4, 1)), "fq_bn254": ((8, 1 << 11),),
+                   "fq_bls12_377": ((16, 1),)}
+
+    def check_ec_fold(self, group):
+        """K2a's one-launch window fold against its plain version (the
+        halving tree of the plain formulas, on the card) and against the
+        tree of K2a launches it replaced (``chain_ms``), as group elements
+        (affine, canonical: the kernel folds by Horner, the trees by
+        halves), at each FOLD_SHAPES shape. The parts are fixed-base
+        multiples of the generator (random z); in row 0 window 3 has G_last
+        = sum G and window 5 G_last at infinity; with several rows, row 1 is
+        all at infinity (a row of zero scalars). A fold is one launch and no
+        other K2a."""
+        from poly_commit_tpu_torch.core import ec_lf, ff, msm_gpu
+
+        torch = self.torch
+        spec = group.spec
+        nw = spec.n_limbs // 2
+        gx = ff.from_ints(spec, [group.gen_x], device=self.dev)
+        gy = ff.from_ints(spec, [group.gen_y], device=self.dev)
+
+        def affine(p):
+            return msm_gpu.jacobian_to_affine(spec, p)
+
+        def err(got, want):
+            return max(self.canon_err(spec, g, w) for g, w in zip(affine(got), affine(want)))
+
+        ok = True
+        for k, (c, rows) in enumerate(self.FOLD_SHAPES[spec.name]):
+            windows = msm_gpu.SCALAR_BITS // c
+            m = rows * windows
+            scal = torch.randint(0, 1 << 16, (2 * m, 16), generator=self.gen, device=self.dev,
+                                 dtype=torch.int32)
+            pts = msm_gpu.fixed_base(group, gx, gy, scal)
+            parts = [cc[:, :m].contiguous() for cc in pts] + [cc[:, m:].contiguous() for cc in pts]
+            for j in range(3):
+                parts[3 + j][:, 3] = parts[j][:, 3]
+            parts[2][:, 5] = 0
+            if rows > 1:
+                parts[2][:, windows : 2 * windows] = 0
+                parts[5][:, windows : 2 * windows] = 0
+            parts = tuple(parts)
+            before = {name: w.launches for name, w in self.k2a_wrappers.items()}
+            got = ec_lf.window_fold(spec, parts, c, rows)
+            launches = {name: w.launches - before[name] for name, w in self.k2a_wrappers.items()
+                        if w.launches != before[name]}
+            one_launch = launches == {"ec_window_fold": 1}
+            want, plain_ms = run_ms(lambda: ec_lf.window_fold_plain(spec, parts, c, rows))
+            e = err(got, want)
+
+            def chain():  # the tree of K2a launches the kernel replaced
+                return ec_lf.fold_tree(spec, parts, c, rows, ec_lf.add, ec_lf.double, ff.sub)
+
+            chain_err = err(got, chain())
+            ok &= e == 0 and chain_err == 0 and one_launch
+            ms = time_ms(lambda: ec_lf.window_fold(spec, parts, c, rows), 10)
+            chain_ms = time_ms(chain, 2)
+            # a window's combine: two adds (16 products) and c doublings (7);
+            # a row's Horner chain: W - 1 times c doublings and an add. The
+            # chain of one row is the latency: its first window's c
+            # doublings and add, then the chain
+            products = rows * (windows * (32 + 7 * c) + (windows - 1) * (7 * c + 16))
+            dependent = windows * (7 * c + 16)
+            n_bytes = (6 * m + 3 * rows) * spec.n_limbs * 4
+            name = f"ec_window_fold[{spec.name}]"
+            if k == 0:
+                bounds = self.entry(name, "fold", max(e, chain_err), ms, plain_ms, n_bytes,
+                                    products * (4 * nw * nw + nw))
+            else:
+                bounds = self.bound(n_bytes, products * (4 * nw * nw + nw))
+            emit({"phase": "kernels", "kernel": name, "c": c, "windows": windows, "rows": rows,
+                  "max_abs_err": e, "chain_max_abs_err": chain_err, "launches": launches,
+                  "one_launch": one_launch, "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+                  "products": products, "dependent_products": dependent, **bounds})
         return ok
 
     def check_ec_formulas(self, group):
@@ -2188,7 +2278,8 @@ class Smoke:
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         launches, by_field, ff_by_size = self.read_counts(in_sums=False)
         needed = ["ec_madd_scan[fq_bn254]", "ec_add[fq_bn254]", "ec_double[fq_bn254]",
-                  "ec_madd[fq_bn254]", "ec_madd_distinct[fq_bn254]", "digit_sort",
+                  "ec_madd[fq_bn254]", "ec_madd_distinct[fq_bn254]",
+                  "ec_window_fold[fq_bn254]", "digit_sort",
                   "ff_batch_inv[fq_bn254]", "ff_pow[fq_bn254]", "ff_mont_mul[fq_bn254]",
                   "ff_mont_mul[fr_bn254]", "ff_add[fr_bn254]"]
         all_launched = self.all_launched(launches, by_field, needed)

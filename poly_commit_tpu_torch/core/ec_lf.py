@@ -24,7 +24,12 @@ formula holds one copy of it. ``madd_scan`` is the MSM's within-lane scan
 (poly_commit_tpu/core/msm_tpu.py:506 runs the K2a madd once a step in a
 lax.scan) in one launch: a lane's sum stays in a thread's registers over
 every step, its points come from a point-major table, and each step's sum
-is stored once as that step's prefix.
+is stored once as that step's prefix. ``window_fold`` is the MSM's window
+fold (msm_tpu.py's ``_combine_sw_device`` and ``_fold_device`` run K2a
+once an operation) in one launch: a row's threads combine its windows
+side by side (a thread a window, or two or four where the rows' blocks
+would not all be resident at once), then one thread's Horner chain a row;
+its plain version is the halving tree ``fold_tree`` on the plain formulas.
 
 K2c (csrc/ec_g2.cu) replaces the ``g2_*`` entries: the same formulas
 (csrc/ec_jac.cuh is shared with K2a) over Fq2 = Fq[u]/(u^2 - nr), Karatsuba
@@ -325,6 +330,10 @@ def _lib(name: str):
                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
         lib.pc_ec_scan.restype = ctypes.c_int
+        lib.pc_ec_fold.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+        lib.pc_ec_fold.restype = ctypes.c_int
     elif name == "ec_g2":
         lib.pc_ec_g2_op.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_void_p, ctypes.c_longlong,
@@ -498,7 +507,91 @@ def madd_scan(spec, table, idx, keep, distinct: bool):
     return tuple(prefixes[k, :, steps - 1].contiguous() for k in range(3)), prefixes
 
 
-WRAPPERS = (madd, madd_distinct, madd_packed, madd_distinct_packed, add, double, madd_scan)
+FOLD_MAX_WINDOWS = 64  # the fold kernel's block: a thread a window
+
+
+def _fold_args(spec: FieldSpec, parts, c: int, rows: int) -> int:
+    """Checks window_fold's operands; returns the windows a row."""
+    if len(parts) != 6:
+        raise ValueError(f"expected G_last and sum G as 6 coordinates, got {len(parts)}")
+    ff.check_limbs(spec, *parts)
+    cols = parts[0].shape[1]
+    if rows < 1 or cols % rows:
+        raise ValueError(f"{cols} window columns do not split into {rows} rows")
+    windows = cols // rows
+    if windows > FOLD_MAX_WINDOWS or windows & (windows - 1) or c < 1:
+        raise ValueError(f"the fold takes a power of two up to {FOLD_MAX_WINDOWS} windows of "
+                         f"c >= 1 bits, got {windows} of c = {c}")
+    return windows
+
+
+def fold_tree(spec: FieldSpec, parts, c: int, rows: int, add, double, sub):
+    """The window fold by a halving tree, by the group operations given
+    (``add(spec, p, q)``, ``double(spec, p)``, ``sub(spec, a, b)``): S_w =
+    2^c G_last - (G_last + sum G) on every column, then each row's upper
+    half of windows doubled c half times and added to its lower half,
+    every row at once. On the plain formulas it is ``window_fold``'s plain
+    version; on the K2a wrappers, the loop of launches the kernel replaced."""
+    L = spec.n_limbs
+    g_last, sum_g = parts[:3], parts[3:]
+    t = add(spec, g_last, sum_g)
+    t = (t[0], sub(spec, torch.zeros_like(t[1]), t[1]), t[2])
+    acc = g_last
+    for _ in range(c):
+        acc = double(spec, acc)
+    cur = add(spec, acc, t)
+    width = cur[0].shape[1] // rows
+    while width > 1:
+        half = width // 2
+        view = tuple(cc.view(L, rows, width) for cc in cur)
+        hi = tuple(cc[:, :, half:].reshape(L, rows * half).contiguous() for cc in view)
+        lo = tuple(cc[:, :, :half].reshape(L, rows * half).contiguous() for cc in view)
+        for _ in range(c * half):
+            hi = double(spec, hi)
+        cur = add(spec, lo, hi)
+        width = half
+    return cur
+
+
+def _fold_plain(spec: FieldSpec, parts, c: int, rows: int):
+    return fold_tree(spec, parts, c, rows, lambda sp, p, q: _plain("add", sp, (*p, *q)),
+                     lambda sp, p: _plain("double", sp, p),
+                     lambda sp, a, b: ff.plain("sub", sp, a, b))
+
+
+def window_fold_plain(spec: FieldSpec, parts, c: int, rows: int):
+    """The plain PyTorch version of ``window_fold`` on any device: the same
+    group elements by a halving tree of the plain formulas."""
+    _fold_args(spec, parts, c, rows)
+    return _fold_plain(spec, parts, c, rows)
+
+
+def window_fold(spec: FieldSpec, parts, c: int, rows: int):
+    """The MSM's window fold of ``rows`` MSMs in one K2a launch
+    (``pc_ec_fold``): ``parts`` are G_last and sum G of each window
+    (msm_gpu._msm_body), 6 coordinates of (L, rows W), a row's W windows
+    side by side; row b of the result is sum_w 2^(c w) S_w with S_w =
+    (2^c - 1) G_last - sum G, Jacobian coordinates (L, rows). The windows'
+    S_w are formed side by side, then each row folds by Horner from its top
+    window. W is a power of two up to FOLD_MAX_WINDOWS."""
+    windows = _fold_args(spec, parts, c, rows)
+    if parts[0].device.type == "cpu":
+        return _fold_plain(spec, parts, c, rows)
+    D.require_cuda(*parts)
+    outs = tuple(torch.empty((spec.n_limbs, rows), dtype=torch.int32, device=parts[0].device)
+                 for _ in range(3))
+    ins = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in parts])
+    optrs = (ctypes.c_void_p * 3)(*[t.data_ptr() for t in outs])
+    rc = _lib("ec_g1").pc_ec_fold(ff.n_words(spec), ins, optrs, rows, windows, c,
+                                  ff.kernel_consts(spec), D.stream_of(parts[0]))
+    if rc != 0:
+        raise RuntimeError(f"ec window_fold kernel launch failed: CUDA error {rc}")
+    _count(window_fold, spec)
+    return outs
+
+
+WRAPPERS = (madd, madd_distinct, madd_packed, madd_distinct_packed, add, double, madd_scan,
+            window_fold)
 for _w in WRAPPERS:
     _w.launches = 0
     _w.launches_by_field = {}

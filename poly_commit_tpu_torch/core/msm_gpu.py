@@ -15,9 +15,10 @@ Counterpart of poly_commit_tpu/core/msm_tpu.py, following ``_msm_body``:
   4. Each bucket's running sum G_b is the global prefix at its tail:
      lane prefix + within-lane prefix, one gathered ``add``.
   5. Abel summation S_w = (2^c - 1) G_last - sum_{b < 2^c - 1} G_b: a
-     halving tree of ``add`` launches; the windows fold on the host
-     (``_fold_host``) for one MSM, on the device (``fold_device``) for the
-     rows of ``msm_rows``.
+     halving tree of ``add`` launches; the windows fold on the device
+     (``fold_device``: one K2a ``window_fold`` launch on the card) for the
+     rows of ``msm_rows`` and for one G1 MSM on the card, and on host ints
+     (``_fold_host``) for one MSM on the CPU, in G2 or in JubJub.
 
 The group law comes from an ops object, as in msm_tpu.py: ``JACOBIAN_OPS``
 (G1, kernel K2a), ``G2_OPS`` (G2 over Fq2, K2c; coordinates are (2L, N)
@@ -36,7 +37,8 @@ rows sharing one set of bases (poly_commit_tpu/pcs/hyrax.py): the rows'
 windows are stacked as more windows of one body (one sort, one scan, one
 lane tree and one Abel tree a chunk of rows), and the fold runs on the
 device for every row at once, as msm_tpu does under a trace
-(``_combine_sw_device``, ``_fold_device``). Its lane count gives each lane
+(``_combine_sw_device``, ``_fold_device``), in the one launch a single G1
+MSM on the card takes too. Its lane count gives each lane
 ROW_STEPS steps (``rows_params``): B rows fill the card with few lanes a
 window, where a single MSM of the same N needs many.
 
@@ -383,6 +385,10 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
     the scan may use the distinct mixed add; repeated bases then give wrong
     sums. Otherwise the complete mixed add runs. JubJub's addition is
     complete either way.
+
+    A G1 MSM on the card folds its windows there (``fold_device``, one
+    launch); on the CPU, in G2 and in JubJub they fold on host ints
+    (``_fold_host``), which on the CPU is 20-30x faster than the plain tree.
     """
     spec = group.spec
     ops = ops_for(group)
@@ -406,6 +412,8 @@ def msm(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = False):
     trace.count("msm_points_run", n2)
     parts = _msm_body(spec, ops, _window_digits(scalars, inf, c), x, y, assume_distinct, c,
                       t_lanes)
+    if ops is JACOBIAN_OPS and dev.type == "cuda":
+        return fold_device(spec, parts, c, 1)
     return ops.from_host(spec, _fold_host(group, ops, parts, c), dev)
 
 
@@ -428,38 +436,16 @@ def rows_params(device: torch.device, n: int):
     return c, max(1, n // ROW_STEPS)
 
 
-def _combine_device(spec: FieldSpec, ops, parts, c: int):
-    """S_w = (2^c - 1) G_last - sum G on every column: 2^c G_last by c
-    doublings, less (G_last + sum G)."""
-    nc = ops.n_coords
-    g_last, sum_g = parts[:nc], parts[nc:]
-    acc = g_last
-    for _ in range(c):
-        acc = ops.double(spec, acc)
-    return ops.add(spec, acc, EC.neg(spec, ops.add(spec, g_last, sum_g)))
-
-
 @trace.traced("MSM::fold_device", log=False)
-def fold_device(spec: FieldSpec, ops, parts, c: int, rows: int):
-    """The window fold of ``rows`` MSMs on the device, the counterpart of
+def fold_device(spec: FieldSpec, parts, c: int, rows: int):
+    """The window fold of ``rows`` G1 MSMs on the device, the counterpart of
     msm_tpu._combine_sw_device and _fold_device batched over rows: parts
     are _msm_body's G_last and sum G with columns row-major (rows W), and
-    the result row b's sum_w 2^(c w) S_w, coords (L, rows). A halving tree
-    over the windows: the upper half of each row's windows is doubled
-    c half times and added to the lower half, every row in one launch."""
-    L = ops.rows(spec)
-    cur = _combine_device(spec, ops, parts, c)
-    width = cur[0].shape[1] // rows
-    while width > 1:
-        half = width // 2
-        view = tuple(cc.view(L, rows, width) for cc in cur)
-        hi = _flat(tuple(cc[:, :, half:] for cc in view), L, rows * half)
-        lo = _flat(tuple(cc[:, :, :half] for cc in view), L, rows * half)
-        for _ in range(c * half):
-            hi = ops.double(spec, hi)
-        cur = ops.add(spec, lo, hi)
-        width = half
-    return cur
+    the result row b's sum_w 2^(c w) S_w, coords (L, rows). One K2a
+    ``window_fold`` launch on the card (its plain version, a halving tree,
+    on the CPU)."""
+    trace.count("msm_device_folds", rows)
+    return EC.window_fold(spec, parts, c, rows)
 
 
 @trace.traced("MSM::msm_rows", log=False)
@@ -500,7 +486,7 @@ def msm_rows(group, scalars: torch.Tensor, x, y, inf, assume_distinct: bool = Fa
         digs = _window_digits(scalars[s : s + per_chunk], inf, c).view(-1, n2)
         parts.append(_msm_body(spec, ops, digs, x, y, assume_distinct, c, t_lanes))
     parts = tuple(torch.cat([p[k] for p in parts], 1) for k in range(2 * ops.n_coords))
-    return fold_device(spec, ops, parts, c, b_rows)
+    return fold_device(spec, parts, c, b_rows)
 
 
 # ---------------------------------------------------------------------------

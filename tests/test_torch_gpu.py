@@ -645,10 +645,50 @@ def test_msm_rows_on_card_matches_host(cuda, rows, n):
         assert got == hg.msm_fast(scal[b], live)
 
 
+# (group, c, rows): Marlin's SRS MSMs (c = 16, W = 16) and hiding MSMs
+# (c = 4, W = 64), Hyrax's 2^11 row MSMs at c = 8 (two windows a thread,
+# so that every block is resident), PST13's BLS12-377 MSMs; 2^13 rows
+# (four windows a thread), a launch shape no path takes
+FOLD_CASES = [(curve.BLS12_381_G1, 16, 1), (curve.BLS12_381_G1, 4, 1), (curve.BN254_G1, 8, 2048),
+              (curve.BLS12_377_G1, 16, 1), (curve.BN254_G1, 8, 8192)]
+FOLD_HOST_ROWS = 4  # rows also held against _fold_host (~40-70 ms a row)
+
+
 @pytest.mark.gpu
-def test_fold_device_on_card_matches_fold_host(cuda):
-    """The batched window fold on the card (K2a double and add launches)
-    against the host fold of each row's windows."""
+@pytest.mark.parametrize("group,c,rows", FOLD_CASES,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_fold_device_on_card_matches_fold_host(cuda, group, c, rows):
+    """The window fold on the card, in one window_fold launch and no other
+    K2a, against the host: the parts are fixed-base multiples of the
+    generator by fold_logs' logs (G_last = +-sum G, G_last at infinity and
+    S_w = 0 windows; with more rows a row of zero scalars and a row of one
+    non-zero window), so every row is the host's multiple of the generator
+    by its log; the first rows also equal _fold_host of their windows."""
+    from poly_commit_tpu_torch.core import msm_gpu
+
+    from tests import torch_fold_cases as FC
+
+    spec, ops = group.spec, msm_gpu.JACOBIAN_OPS
+    windows = msm_gpu.SCALAR_BITS // c
+    logs, want = FC.fold_logs(group.scalar_spec.modulus, c, windows, rows, seed=33)
+    parts = FC.card_fold_parts(group, logs, cuda)
+    before = {w.__name__: w.launches for w in ec_lf.WRAPPERS}
+    folded = msm_gpu.fold_device(spec, parts, c, rows)
+    torch.cuda.synchronize()
+    launched = {w.__name__: w.launches - before[w.__name__] for w in ec_lf.WRAPPERS
+                if w.launches != before[w.__name__]}
+    assert launched == {"window_fold": 1}
+    got = FC.fold_to_host(group, folded)
+    assert got == FC.want_points(group, want)
+    for b in range(min(rows, FOLD_HOST_ROWS)):
+        row_parts = tuple(p[:, b * windows : (b + 1) * windows] for p in parts)
+        assert msm_gpu._fold_host(group, ops, row_parts, c) == got[b]
+
+
+@pytest.mark.gpu
+def test_fold_device_on_card_matches_fold_host_on_msm_parts(cuda):
+    """The fold of _msm_body's own parts (4 BN254 rows of 256 points at the
+    card's c = 8) against the host fold of each row's windows."""
     from poly_commit_tpu_torch.core import msm_gpu
 
     group = curve.BN254_G1
@@ -664,11 +704,43 @@ def test_fold_device_on_card_matches_fold_host(cuda):
     x, y = ff.from_field_last(x), ff.from_field_last(y)
     digs = msm_gpu._window_digits(sc, inf, c).view(-1, n)
     parts = msm_gpu._msm_body(spec, ops, digs, x, y, True, c, t_lanes)
-    folded = msm_gpu.fold_device(spec, ops, parts, c, rows)
+    folded = msm_gpu.fold_device(spec, parts, c, rows)
     w = msm_gpu.SCALAR_BITS // c
     for b in range(rows):
         host = msm_gpu._fold_host(group, ops, tuple(p[:, b * w : (b + 1) * w] for p in parts), c)
         assert ops.to_host(spec, None, tuple(cc[:, b : b + 1] for cc in folded)) == [host]
+
+
+@pytest.mark.gpu
+def test_g1_msm_on_card_folds_on_card(cuda, monkeypatch):
+    """A G1 MSM of 786,432 points (Marlin's padded SRS MSMs) on the card:
+    its windows fold in one window_fold launch, _fold_host never runs, and
+    the point equals the host's. The bases are fixed-base multiples of the
+    generator by known random logs, so the host's MSM is msm_fast of the
+    generator by sum_i s_i log_i."""
+    from poly_commit_tpu_torch.core import msm_gpu
+
+    group = curve.BLS12_381_G1
+    spec, r, n = group.spec, group.scalar_spec.modulus, 786_432
+    rnd = random.Random(36)
+    logs = [rnd.randrange(1, r) for _ in range(n)]
+    scal = [rnd.randrange(r) for _ in range(n)]
+    gx = ff.from_ints(spec, [group.gen_x], device=cuda)
+    gy = ff.from_ints(spec, [group.gen_y], device=cuda)
+    bases = msm_gpu.fixed_base(group, gx, gy, msm.scalars_from_ints(group.scalar_spec, logs, cuda))
+    x, y = msm_gpu.jacobian_to_affine(spec, bases)
+    del bases
+    host_folds = []
+    monkeypatch.setattr(msm_gpu, "_fold_host", lambda *a: host_folds.append(a))
+    before = ec_lf.window_fold.launches
+    out = msm_gpu.msm(group, msm.scalars_from_ints(group.scalar_spec, scal, cuda), x, y,
+                      torch.zeros(n, dtype=torch.bool, device=cuda), True)
+    torch.cuda.synchronize()
+    assert ec_lf.window_fold.launches == before + 1 and host_folds == []
+    k = sum(s * lg for s, lg in zip(scal, logs)) % r
+    hg = hostec.host_group(group)
+    assert msm_gpu.JACOBIAN_OPS.to_host(spec, None, out) == [
+        hg.msm_fast([k], [(group.gen_x, group.gen_y)])]
 
 
 @pytest.mark.gpu

@@ -7,7 +7,7 @@ The port runs its own Pippenger path at every size, with its CPU window
 (c = 4, T = 16 lanes); results are compared as affine points. The batched
 MSM over shared bases (msm_rows, BN254 G1, Hyrax's row commitments) is held
 against per-row MSMs of the JAX package and the host, and its device window
-fold against the host fold.
+fold (``ec_lf.window_fold``'s plain version here) against the host fold.
 """
 
 import numpy as np
@@ -22,6 +22,7 @@ from poly_commit_tpu.core import curve as jcurve  # noqa: E402
 from poly_commit_tpu.core import hostec as jhostec  # noqa: E402
 from poly_commit_tpu.core import msm as jmsm  # noqa: E402
 from poly_commit_tpu_torch.core import curve, ff, hostec, msm, msm_gpu  # noqa: E402
+from tests import torch_fold_cases as FC  # noqa: E402
 from tests.ref_ec import Fp, RefWeierstrass  # noqa: E402
 pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
@@ -206,9 +207,59 @@ def test_fold_device_matches_fold_host():
     sc = torch.stack([msm.scalars_from_ints(tg.scalar_spec, row, device="cpu") for row in scal])
     digs = msm_gpu._window_digits(sc, pts[2], c).view(-1, 16)
     parts = msm_gpu._msm_body(spec, ops, digs, x, y, True, c, t_lanes)
-    folded = msm_gpu.fold_device(spec, ops, parts, c, 2)
+    folded = msm_gpu.fold_device(spec, parts, c, 2)
     w = msm_gpu.SCALAR_BITS // c
     for b in range(2):
         row_parts = tuple(p[:, b * w : (b + 1) * w] for p in parts)
         host = msm_gpu._fold_host(tg, ops, row_parts, c)
         assert ops.to_host(spec, None, tuple(cc[:, b : b + 1] for cc in folded)) == [host]
+
+
+
+@pytest.mark.parametrize("name", ["bls12_381", "bls12_377", "bn254"])
+def test_window_fold_edge_rows_match_host(name):
+    """ec_lf.window_fold (its plain version on the CPU) at c = 3, four
+    windows, four rows of fold_logs' edge cases: each row equals the host
+    multiple of the generator by the row's log and _fold_host of the row."""
+    from poly_commit_tpu_torch.core import ec_lf
+
+    tg, _ = GROUPS[name]
+    spec, ops, c, windows, rows = tg.spec, msm_gpu.JACOBIAN_OPS, 3, 4, 4
+    logs, want = FC.fold_logs(tg.scalar_spec.modulus, c, windows, rows, seed=24)
+    parts = FC.host_fold_parts(tg, logs, seed=25)
+    got = FC.fold_to_host(tg, ec_lf.window_fold(spec, parts, c, rows))
+    assert got == FC.want_points(tg, want)
+    assert got[1] is None and None not in (got[0], got[2], got[3])
+    for b in range(rows):
+        row_parts = tuple(p[:, b * windows : (b + 1) * windows] for p in parts)
+        assert msm_gpu._fold_host(tg, ops, row_parts, c) == got[b]
+
+
+@pytest.mark.parametrize("cols,rows,c,n_parts", [(12, 5, 4, 6), (256, 2, 4, 6), (12, 2, 4, 6),
+                                                 (8, 2, 0, 6), (8, 2, 4, 3)])
+def test_window_fold_refuses_bad_shapes(cols, rows, c, n_parts):
+    """Columns that do not split into rows, more than 64 windows a row or
+    a count that is not a power of two, c < 1, or other than G_last and
+    sum G's six coordinates."""
+    from poly_commit_tpu_torch.core import ec_lf
+
+    spec = curve.BN254_G1.spec
+    parts = tuple(torch.zeros((spec.n_limbs, cols), dtype=torch.int32) for _ in range(n_parts))
+    with pytest.raises(ValueError):
+        ec_lf.window_fold(spec, parts, c, rows)
+
+
+def test_cpu_msm_folds_on_host_ints(monkeypatch):
+    """A G1 MSM on the CPU keeps the host fold: _fold_host runs, the
+    window_fold wrapper is never entered."""
+    from poly_commit_tpu_torch.core import ec_lf
+
+    calls = []
+    monkeypatch.setattr(ec_lf, "window_fold", lambda *a: calls.append(a))
+    host_fold = msm_gpu._fold_host
+    monkeypatch.setattr(msm_gpu, "_fold_host", lambda *a: calls.append("host") or host_fold(*a))
+    tg, _ = GROUPS["bn254"]
+    triples, scal, want = _case("bn254", 9, seed=26)
+    out = msm.msm(tg, msm.scalars_from_ints(tg.scalar_spec, scal, device="cpu"),
+                  curve.affine_from_ints(tg, triples, device="cpu"))
+    assert hostec.device_proj_to_host(tg, out) == want and calls == ["host"]

@@ -186,6 +186,20 @@ def test_counts_sit_on_the_innermost_span(traced):
     assert reads and all(r.counts == {"host_syncs": 1} for r in reads)
 
 
+def test_device_folds_count_hyrax_rows(traced):
+    """msm_device_folds sits on MSM::fold_device under Hyrax's commit and
+    counts its row MSMs; Marlin's CPU MSMs still fold on host ints."""
+    recs = traced[0]
+    ids = by_id(recs)
+    folds = [r for r in recs if "msm_device_folds" in r.counts]
+    dim = 1 << (NUM_VARS // 2)
+    assert folds and all(r.name == "MSM::fold_device" for r in folds)
+    assert all(r.counts["msm_device_folds"] == dim and "Hyrax::commit" in ancestors(r, ids)
+               for r in folds)
+    assert [r for r in recs if r.name == "MSM::fold_host"
+            and "MarlinKZG10::commit" in ancestors(r, ids)]
+
+
 def test_msm_points_run_counts_padded_points(traced):
     """A CPU MSM of n points scans max(16, next power of two) (16 lanes);
     Hyrax's msm_rows scans its rows times the padded row length."""
