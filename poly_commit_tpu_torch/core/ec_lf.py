@@ -45,8 +45,8 @@ every lane in one K2b launch: the MSB-first chain of ``ed_double`` and
 (poly_commit_tpu/core/curve.py::scalar_mul), limb for limb.
 
 The plain versions below follow ec_lf.py's formulas on ff's plain field ops
-and run only for CPU tensors; each wrapper counts its kernel launches, in
-all and by field (``launches_by_field``).
+and run only for CPU tensors; each wrapper counts its kernel launches
+(``launches``).
 """
 
 from __future__ import annotations
@@ -384,14 +384,13 @@ def _run(wrapper, which: str, spec: FieldSpec, coords):
                                     stream)
     if rc != 0:
         raise RuntimeError(f"ec {which} kernel launch failed: CUDA error {rc}")
-    _count(wrapper, spec)
+    _count(wrapper)
     return outs
 
 
-def _count(wrapper, spec: FieldSpec) -> None:
-    """One launch of ``wrapper``'s kernel on ``spec``."""
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel."""
     wrapper.launches += 1
-    wrapper.launches_by_field[spec.name] = wrapper.launches_by_field.get(spec.name, 0) + 1
 
 
 def plain(which: str, spec: FieldSpec, *coords):
@@ -503,7 +502,7 @@ def madd_scan(spec, table, idx, keep, distinct: bool):
                                   steps, ff.kernel_consts(spec), D.stream_of(table))
     if rc != 0:
         raise RuntimeError(f"ec madd_scan kernel launch failed: CUDA error {rc}")
-    _count(madd_scan, spec)
+    _count(madd_scan)
     return tuple(prefixes[k, :, steps - 1].contiguous() for k in range(3)), prefixes
 
 
@@ -586,7 +585,7 @@ def window_fold(spec: FieldSpec, parts, c: int, rows: int):
                                   ff.kernel_consts(spec), D.stream_of(parts[0]))
     if rc != 0:
         raise RuntimeError(f"ec window_fold kernel launch failed: CUDA error {rc}")
-    _count(window_fold, spec)
+    _count(window_fold)
     return outs
 
 
@@ -594,7 +593,6 @@ WRAPPERS = (madd, madd_distinct, madd_packed, madd_distinct_packed, add, double,
             window_fold)
 for _w in WRAPPERS:
     _w.launches = 0
-    _w.launches_by_field = {}
 
 
 def infinity(spec: FieldSpec, n: int, device):
@@ -735,7 +733,7 @@ def ed_smul(spec, p, k: int):
                                      k.bit_length(), D.stream_of(coords[0]))
     if rc != 0:
         raise RuntimeError(f"ec ed_smul kernel launch failed: CUDA error {rc}")
-    _count(ed_smul, spec)
+    _count(ed_smul)
     return outs
 
 
@@ -748,7 +746,6 @@ def ed_smul_plain(spec, p, k: int):
 ED_WRAPPERS = (ed_madd, ed_madd_packed, ed_add, ed_double, ed_smul)
 for _w in G2_WRAPPERS + ED_WRAPPERS:
     _w.launches = 0
-    _w.launches_by_field = {}
 
 
 def ed_infinity(spec: FieldSpec, n: int, device):

@@ -252,15 +252,9 @@ def _lib():
     return lib
 
 
-SIZE_CLASSES = ("1", "<2^16", ">=2^16")  # columns of a launch, for launches_by_size
-
-
-def _count(wrapper, spec: FieldSpec, n: int) -> None:
-    """One launch of ``wrapper``'s kernel on n columns of ``spec``."""
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel."""
     wrapper.launches += 1
-    wrapper.launches_by_field[spec.name] = wrapper.launches_by_field.get(spec.name, 0) + 1
-    size = SIZE_CLASSES[0 if n == 1 else 1 if n < 1 << 16 else 2]
-    wrapper.launches_by_size[size] += 1
 
 
 def _run(wrapper, op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
@@ -276,7 +270,7 @@ def _run(wrapper, op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
                          D.stream_of(a))
     if rc != 0:
         raise RuntimeError(f"ff {op} kernel launch failed: CUDA error {rc}")
-    _count(wrapper, spec, a.shape[1])
+    _count(wrapper)
     return out
 
 
@@ -331,7 +325,7 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
                           e.bit_length(), kernel_consts(spec), D.stream_of(a))
     if rc != 0:
         raise RuntimeError(f"ff pow kernel launch failed: CUDA error {rc}")
-    _count(mont_pow, spec, a.shape[1])
+    _count(mont_pow)
     return out
 
 
@@ -374,7 +368,7 @@ def _tree_level(spec: FieldSpec, down: bool, src, inv_roots, dst) -> None:
                                 kernel_consts(spec), D.stream_of(src))
     if rc != 0:
         raise RuntimeError(f"ff batch_inv kernel launch failed: CUDA error {rc}")
-    _count(batch_inv, spec, n)
+    _count(batch_inv)
 
 
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -427,7 +421,7 @@ def _sum_pass(spec: FieldSpec, src, dst) -> None:
                           dst.shape[1], kernel_consts(spec), D.stream_of(src))
     if rc != 0:
         raise RuntimeError(f"ff sum kernel launch failed: CUDA error {rc}")
-    _count(fsum, spec, src.shape[1])
+    _count(fsum)
 
 
 def fsum(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -451,8 +445,6 @@ def fsum(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 WRAPPERS = (mont_mul, add, sub, mont_pow, batch_inv, fsum)
 for _w in WRAPPERS:
     _w.launches = 0
-    _w.launches_by_field = {}  # spec.name -> launches: each field is its own build
-    _w.launches_by_size = dict.fromkeys(SIZE_CLASSES, 0)
 del _w
 
 

@@ -7,6 +7,7 @@ runs on a GPU machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import io
 import random
 
 import numpy as np
@@ -21,6 +22,7 @@ from poly_commit_tpu_torch.core import curve, ec_lf, ff, hostec, msm, ntt_lf, so
 from poly_commit_tpu_torch.core import field as F  # noqa: E402
 from poly_commit_tpu_torch.core import field_params as FP  # noqa: E402
 from poly_commit_tpu_torch.core import ntt as NTT  # noqa: E402
+from tests import torch_mesh_cases as mesh_cases  # noqa: E402
 
 FORMULAS = ["madd", "madd_distinct", "madd_packed", "madd_distinct_packed", "add", "double"]
 SENTINEL = 1 << 16
@@ -589,13 +591,19 @@ def _sonic_round_trip(device):
     query_set = {(lp.label, (f"z{i}", z)) for lp in polys for i, z in enumerate(points)}
     proofs, values = PC.batch_open(ck, polys, comms, query_set, PoseidonSponge(PC.spec), states, rng)
     ok = PC.batch_check(vk, comms, query_set, values, proofs, PoseidonSponge(PC.spec))
-    return ([c.commitment.point for c in comms], [(p.w, p.random_v) for p in proofs], values, ok)
+    first = sorted(values)[0]
+    bad = {**values, first: (values[first] + 1) % PC.spec.modulus}
+    rejected = not PC.batch_check(vk, comms, query_set, bad, proofs, PoseidonSponge(PC.spec))
+    return ([c.commitment.point for c in comms], [(p.w, p.random_v) for p in proofs], values, ok,
+            rejected)
 
 
 @pytest.mark.gpu
 def test_sonic_round_trip_on_card_matches_cpu(cuda):
+    """Sonic's commitments, proofs and values on the card equal the CPU's;
+    batch_check accepts them and rejects a value plus one."""
     got, want = _sonic_round_trip(cuda), _sonic_round_trip("cpu")
-    assert got == want and got[3] is True
+    assert got == want and got[3] is True and got[4] is True
 
 
 @pytest.mark.gpu
@@ -870,6 +878,33 @@ def test_pst13_round_trip_on_card_matches_cpu(cuda):
     assert got == _pst13_round_trip("cpu") and got[3] is True
 
 
+@pytest.mark.gpu
+def test_pst13_bls12_377_round_trip_on_card(cuda):
+    """MarlinPST13_BLS12_377 at 3 variables, degree 4, on the card (its
+    K1 and K2a builds of Fq-377): batch_check accepts two hiding
+    polynomials' values and rejects a value plus one; the G1 kernels ran."""
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.pst13 import MarlinPST13_BLS12_377 as PC, MVPoly
+
+    spec = PC.spec
+    rng = HostRng(13)
+    before = {w.__name__: w.launches for w in ec_lf.WRAPPERS}
+    ck, vk = PC.trim(PC.setup(4, num_vars=3, rng=rng, device=cuda), 4, 1)
+    polys = [LabeledPolynomial(f"q{i}", MVPoly.rand(rng, 3, 4, num_terms=12, spec=spec),
+                               hiding_bound=1, num_vars=3) for i in range(2)]
+    comms, states = PC.commit(ck, polys, rng)
+    point = tuple(rng.field_int(spec) for _ in range(3))
+    qs = {(lp.label, ("z", point)) for lp in polys}
+    proofs, values = PC.batch_open(ck, polys, comms, qs, PoseidonSponge(spec), states, rng)
+    assert PC.batch_check(vk, comms, qs, values, proofs, PoseidonSponge(spec))
+    first = sorted(values)[0]
+    bad = {**values, first: (values[first] + 1) % spec.modulus}
+    assert not PC.batch_check(vk, comms, qs, bad, proofs, PoseidonSponge(spec))
+    launched = {w.__name__ for w in ec_lf.WRAPPERS if w.launches > before[w.__name__]}
+    assert {"madd", "madd_distinct", "add", "double", "madd_scan", "window_fold"} <= launched
+
+
 def _r1cs_circuit():
     """A small R1CS over Fr-381: 3 G on JubJub, one non-native product and a
     263-bit range check (rows from 1 to 265 entries: every bucket kind of
@@ -936,6 +971,10 @@ def test_device_pairing_check_on_card(cuda):
     g1 = curve.affine_from_ints(curve.BLS12_381_G1, [(p[0], p[1], False)] * 2 + [(0, 0, True)],
                                 cuda)
     assert not bool(PR.pairing_check(g1, g2))
+    # an infinite input gives one
+    inf = curve.affine_from_ints(curve.BLS12_381_G1, [(0, 0, True)], cuda)
+    q1 = curve.affine_from_ints(curve.BLS12_381_G2, [(q[0], q[1], False)], cuda)
+    assert bool(PR.f12_is_one(PR.miller_loop(inf, q1)).all())
 
 
 @pytest.mark.gpu
@@ -956,6 +995,38 @@ def test_persisted_key_loads_onto_card(cuda, tmp_path):
         return kzg10.commit(powers, coeffs.to(dev))[0]
 
     assert commit(back, cuda) == commit(pp, "cpu")
+
+
+@pytest.mark.gpu
+def test_marlin_key_traced_and_persisted_on_card(cuda, tmp_path, monkeypatch):
+    """A MarlinKZG10 commit on the card under torch.profiler with
+    POLY_COMMIT_TRACE=1 shows its MarlinKZG10::commit and KZG10::commit
+    spans on the host; its committer key, saved and loaded onto the card
+    (utils/persist), commits to the same point."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.marlin_pc import MarlinKZG10 as PC
+    from poly_commit_tpu_torch.utils import persist
+
+    rng = HostRng(15)
+    ck, _ = PC.trim(PC.setup(1023, rng=rng, device=cuda), 1023, 1)
+    lp = LabeledPolynomial("p", F.from_ints(PC.spec, rng.field_ints(PC.spec, 1024), device=cuda))
+    monkeypatch.setenv("POLY_COMMIT_TRACE", "1")
+    scans, sorts = ec_lf.madd_scan.launches, sort_gpu.digit_sort.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        comms, _ = PC.commit(ck, [lp])
+        torch.cuda.synchronize()
+    assert ec_lf.madd_scan.launches > scans and sort_gpu.digit_sort.launches > sorts
+    host = {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU and e.time_range.end > e.time_range.start}
+    assert {"MarlinKZG10::commit", "KZG10::commit"} <= host
+    path = str(tmp_path / "marlin_ck.npz")
+    persist.save(path, ck)
+    loaded = persist.load(path, device=cuda)
+    assert all(t.device.type == "cuda" for t in loaded.powers + loaded.powers_of_gamma_g
+               if isinstance(t, torch.Tensor))
+    assert PC.commit(loaded, [lp])[0][0].commitment == comms[0].commitment
 
 
 
@@ -1000,6 +1071,112 @@ def test_msm_sharded_two_gloo_ranks_share_card(cuda):
 
 
 @pytest.mark.gpu
+def test_marlin_under_nccl_world_1_on_card(cuda, monkeypatch):
+    """MarlinKZG10 at degree 2^10 - 1 under use_mesh(make_mesh(1)), NCCL
+    in this process: commit and batch_open equal the single-device run's,
+    their SRS MSMs take msm_sharded, and batch_check accepts."""
+    import torch.distributed as dist
+
+    from poly_commit_tpu_torch.core.transcript import PoseidonSponge
+    from poly_commit_tpu_torch.parallel import mesh as PM
+    from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
+    from poly_commit_tpu_torch.pcs.marlin_pc import MarlinKZG10 as PC
+
+    spec, degree = PC.spec, 1023
+    ck, vk = PC.trim(PC.setup(degree, rng=HostRng(16), device=cuda), degree, 1)
+    lp = LabeledPolynomial("p", F.from_ints(spec, HostRng(17).field_ints(spec, degree + 1), device=cuda),
+                           hiding_bound=1)
+
+    def commit_open():
+        rng = HostRng(18)
+        comms, states = PC.commit(ck, [lp], rng)
+        qs = {("p", ("z", rng.field_int(spec)))}
+        proofs, values = PC.batch_open(ck, [lp], comms, qs, PoseidonSponge(spec), states, rng)
+        return comms, qs, proofs, values
+
+    want = commit_open()
+    calls, sharded = [], PM.msm_sharded
+    monkeypatch.setattr(PM, "msm_sharded", lambda *a, **kw: calls.append(1) or sharded(*a, **kw))
+    mesh = PM.make_mesh(1)
+    try:
+        assert mesh.backend == "nccl"
+        with PM.use_mesh(mesh):
+            got = commit_open()
+            comms, qs, proofs, values = got
+            assert PC.batch_check(vk, comms, qs, values, proofs, PoseidonSponge(spec))
+    finally:
+        dist.destroy_process_group()
+    assert got == want and calls
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    """tests/torch_mesh_cases.py's cases on four gloo ranks that share
+    cuda:0, their collectives staged through host memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    from poly_commit_tpu_torch.parallel import launch as PL
+
+    return PL.launch(mesh_cases.run, mesh_cases.WORLD, backend="gloo", device="cuda:0",
+                     args=("cuda:0",), timeout=600)
+
+
+# the mesh layer's entry point each case's sharded branch calls (the
+# 8-point NTT gathers instead)
+MESH_ROUTES = {"msm_64": "msm_sharded", "msm_50": "msm_sharded", "batch_msm": "batch_msm_sharded",
+               "ntt_64_forward": "_transpose_sharded", "ntt_64_inverse": "_transpose_sharded",
+               "batch_ntt": "batch_ntt_sharded", "row_mul": "row_mul_sharded",
+               "fold_key": "fold_key_sharded", "marlin_golden": "msm_sharded",
+               "hyrax_commit": "batch_msm_sharded", "pst13_commit": "msm_sharded",
+               "brakedown_encode": "map_rows", "ligero_encode": "batch_ntt_sharded",
+               "ipa_open": "fold_key_sharded"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(mesh_cases.CASES))
+def test_mesh_case_on_card_matches_single_device(card_ranks, name):
+    """Each case under the mesh of four ranks on cuda:0 equals its
+    single-device result on the card (the NTTs slice by slice; the Marlin
+    golden its committed vector), and ran its sharded branch."""
+    import json
+    import os
+
+    got = [r["mesh"][name] for r in card_ranks]
+    if name.startswith("ntt_"):
+        slices = sorted(got)
+        assert [i for i, _ in slices] == list(range(mesh_cases.WORLD))
+        got = [[v for _, part in slices for v in part]]
+    assert all(g == got[0] for g in got[1:])
+    if name == "marlin_golden":
+        with open(os.path.join(os.path.dirname(__file__), "vectors", "marlin_ark_golden.json")) as fh:
+            want = json.load(fh)
+    else:
+        (want,) = [r["single"][name] for r in card_ranks if name in r["single"]]
+    assert got[0] == want
+    if name in MESH_ROUTES:
+        assert all(MESH_ROUTES[name] in r["routes"][name] for r in card_ranks)
+
+
+@pytest.mark.gpu
+def test_mesh_2d_guard_and_replication_on_card(card_ranks):
+    """On cuda:0's four ranks: the 2x2 mesh's MSM over dp and NTT over tp
+    equal the single-device results, a rank whose replicated input differs
+    makes every rank raise, and replicate and shard_batch keep their
+    layouts."""
+    (msm_64,) = [r["single"]["msm_64"] for r in card_ranks if "msm_64" in r["single"]]
+    (ntt_64,) = [r["single"]["ntt_64_forward"] for r in card_ranks if "ntt_64_forward" in r["single"]]
+    assert sorted(r["coords_2d"] for r in card_ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert all(r["mesh"]["msm_64_dp"] == msm_64 for r in card_ranks)
+    for dp in (0, 1):
+        slices = sorted(r["mesh"]["ntt_64_forward_tp"] for r in card_ranks if r["coords_2d"][0] == dp)
+        assert [v for _, s in slices for v in s] == ntt_64
+    assert all("replicated inputs differ" in (r["mesh"]["digest_guard"] or "") for r in card_ranks)
+    assert all(r["mesh"]["replicate"] == [10, 10, 10] for r in card_ranks)
+    got = sorted((r["rank"], r["mesh"]["shard_batch"]) for r in card_ranks)
+    assert got == [(i, [2 * i, 2 * i + 1]) for i in range(mesh_cases.WORLD)]
+
+
+@pytest.mark.gpu
 def test_demo_drives_every_scheme_on_card(cuda, capsys):
     """The port's entry point (python -m poly_commit_tpu_torch.demo) on the
     card: ten OK lines, each tamper probe rejected, exit code 0."""
@@ -1009,3 +1186,32 @@ def test_demo_drives_every_scheme_on_card(cuda, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [ln for ln in lines if ln.startswith(("OK ", "FAIL "))] == [f"OK {n}" for n in demo.NAMES]
     assert len(demo.NAMES) == 10
+
+
+# the drives also run on the CPU (the kernels' plain versions) and are held
+# against the card's: the ones with the smallest MSMs (Hyrax's rows of 4,
+# IPA's 8 points) and the 16-point Ligero encodes
+DEMO_ON_CPU = ("ipa_pc", "univariate_ligero", "multilinear_ligero", "brakedown", "hyrax")
+# kernels the drives launch: K1, K2a's MSM scan and fixed-base madd, K2c
+# (the G2 setups), K2b (IPA's key fold), K3 and K4a
+DEMO_KERNELS = (ff.mont_mul, ec_lf.madd_scan, ec_lf.madd, ec_lf.g2_madd, ec_lf.ed_smul,
+                sort_gpu.digit_sort, ntt_lf.small)
+
+
+@pytest.mark.gpu
+def test_demo_drives_on_card_match_cpu(cuda):
+    """The entry point's ten drives in this process on the card, every one
+    passed (its tamper probe rejected) and every kernel family launched;
+    five of them on the CPU give the card's commitments and values."""
+    from poly_commit_tpu_torch import demo
+
+    before = [k.launches for k in DEMO_KERNELS]
+    results = demo.run(device=cuda, out=io.StringIO())
+    assert [r.name for r in results] == list(demo.NAMES)
+    assert [r.name for r in results if not r.passed] == []
+    assert [k.__name__ for k, b in zip(DEMO_KERNELS, before) if k.launches == b] == []
+    card = {r.name: r for r in results}
+    for name in DEMO_ON_CPU:
+        res = demo.run_scheme(name, "cpu")
+        assert res.passed, name
+        assert (res.commitments, res.values) == (card[name].commitments, card[name].values), name

@@ -8,7 +8,8 @@ JAX module's jitted ``miller_loop`` and ``final_exponentiation`` are not
 used. A whole final exponentiation takes ~30 s on this CPU, so the
 dispatch tests replace it with the reference model and reuse the one
 Miller-loop batch the file computes; the card's tests
-(tests/test_torch_gpu.py) and chip_smoke.py phase 15 run it whole.
+(tests/test_torch_gpu.py, and tests/test_torch_gpu_paths.py as Marlin's
+and MultilinearPC's verifier) run it whole.
 """
 
 import random

@@ -1,12 +1,16 @@
 """The rank side of tests/test_torch_mesh.py: every case of the PyTorch
-port's mesh layer, run by each of four gloo ranks on the CPU.
+port's mesh layer, run by each of four gloo ranks on the CPU (and by
+tests/test_torch_gpu.py's four gloo ranks sharing cuda:0).
 
 Each spawned rank imports this module (torch and the port only, no JAX)
 and runs ``run``: first the keys and the single-device results, each built
 by one rank and the keys broadcast to the others; then every case under the
-mesh, on every rank. It returns its results as host values; the test file
-holds them against each other, the single-device results and JAX.
+mesh, on every rank, noting which of the mesh layer's entry points
+(ROUTES) each case called. It returns its results as host values; the test
+files hold them against each other, the single-device results and JAX.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -26,7 +30,7 @@ from poly_commit_tpu_torch.pcs import linear_codes as LC
 from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial
 from poly_commit_tpu_torch.pcs.linear_codes import brakedown, engine
 
-CPU = "cpu"
+DEVICE = "cpu"  # the ranks' device: run() sets it
 WORLD = 4
 G1 = C.BLS12_381_G1
 NTT_SPEC = FP.FR_BN254
@@ -68,14 +72,14 @@ def msm_case(group, n, seed):
 
 def _msm_tensors(group, n, seed):
     triples, scalars = msm_case(group, n, seed)
-    return M.scalars_from_ints(group.scalar_spec, scalars, CPU), C.affine_from_ints(group, triples, CPU)
+    return M.scalars_from_ints(group.scalar_spec, scalars, DEVICE), C.affine_from_ints(group, triples, DEVICE)
 
 
 def _rows_case():
     """BN254 rows of scalars over 16 shared bases (Hyrax's layout)."""
     triples, _ = msm_case(C.BN254_G1, 16, 31)
-    rows = F.from_ints(FP.FR_BN254, field_ints(FP.FR_BN254, MSM_ROWS * 16, 32), mont=False, device=CPU)
-    return rows.reshape(MSM_ROWS, 16, -1), C.affine_from_ints(C.BN254_G1, triples, CPU)
+    rows = F.from_ints(FP.FR_BN254, field_ints(FP.FR_BN254, MSM_ROWS * 16, 32), mont=False, device=DEVICE)
+    return rows.reshape(MSM_ROWS, 16, -1), C.affine_from_ints(C.BN254_G1, triples, DEVICE)
 
 
 def key_case_ints():
@@ -90,11 +94,11 @@ def key_case_ints():
 
 def _key_case():
     left, right, ch = key_case_ints()
-    return C.affine_from_ints(C.JUBJUB, left, CPU), C.affine_from_ints(C.JUBJUB, right, CPU), ch
+    return C.affine_from_ints(C.JUBJUB, left, DEVICE), C.affine_from_ints(C.JUBJUB, right, DEVICE), ch
 
 
 def _mat(spec, rows, cols, seed):
-    return F.from_ints(spec, field_ints(spec, rows * cols, seed), device=CPU).reshape(rows, cols, -1)
+    return F.from_ints(spec, field_ints(spec, rows * cols, seed), device=DEVICE).reshape(rows, cols, -1)
 
 
 def _affine(group, key):
@@ -106,28 +110,27 @@ def _affine(group, key):
 
 
 def _pst13_key():
-    pp = pst13.MarlinPST13.setup(PST13_DEGREE, num_vars=PST13_NUM_VARS, rng=HostRng(5), device=CPU)
+    pp = pst13.MarlinPST13.setup(PST13_DEGREE, num_vars=PST13_NUM_VARS, rng=HostRng(5), device=DEVICE)
     return pst13.MarlinPST13.trim(pp, PST13_DEGREE, 0)[0]
 
 
 def _ipa_key():
-    pp = ipa_pc.InnerProductArgPC.setup(IPA_DEGREE, rng=HostRng(7), device=CPU)
+    pp = ipa_pc.InnerProductArgPC.setup(IPA_DEGREE, rng=HostRng(7), device=DEVICE)
     return ipa_pc.InnerProductArgPC.trim(pp, IPA_DEGREE, 0, None)[0]
 
 
 def _hyrax_key():
-    pp = hyrax.HyraxPC.setup(0, num_vars=HYRAX_NUM_VARS, rng=HostRng(7), device=CPU)
+    pp = hyrax.HyraxPC.setup(0, num_vars=HYRAX_NUM_VARS, rng=HostRng(7), device=DEVICE)
     return hyrax.HyraxPC.trim(pp, 0, 1, None)[0]
 
 
 def _brakedown_key():
     seed, poly_len, base_len = BRAKEDOWN_KEY
-    return brakedown.default_params(FP.FR_BN254, HostRng(seed), poly_len, True, base_len, device=CPU)
+    return brakedown.default_params(FP.FR_BN254, HostRng(seed), poly_len, True, base_len, device=DEVICE)
 
 
 KEYS = {"pst13": (0, _pst13_key), "ipa": (1, _ipa_key), "hyrax": (2, _hyrax_key),
         "brakedown": (2, _brakedown_key)}
-LIGERO = LC.MultilinearLigeroBN254.code.setup(0, LIGERO_NUM_VARS, None, device=CPU)
 
 
 # -- the cases: each runs the same way alone and under the mesh ---------------
@@ -161,7 +164,7 @@ def case_ntt(n, inverse):
     """Single: the portable transform of the whole vector. Under the mesh:
     this rank's slice, as (axis index, canonical ints)."""
     def fn(keys):
-        a = F.from_ints(NTT_SPEC, ntt_ints(n), device=CPU)
+        a = F.from_ints(NTT_SPEC, ntt_ints(n), device=DEVICE)
         active = PM.active_mesh()
         if active is None:
             return F.to_ints(NTT_SPEC, (NTT.intt if inverse else NTT.ntt)(NTT_SPEC, a))
@@ -196,12 +199,12 @@ def case_fold_key(keys):
 
 
 def case_marlin_golden(keys):
-    return ark_interop.marlin_ark_golden(GOLDEN_DEGREE, device=CPU)
+    return ark_interop.marlin_ark_golden(GOLDEN_DEGREE, device=DEVICE)
 
 
 def case_hyrax(keys):
     PC = hyrax.HyraxPC
-    poly = F.from_ints(PC.spec, field_ints(PC.spec, 1 << HYRAX_NUM_VARS, 80), device=CPU)
+    poly = F.from_ints(PC.spec, field_ints(PC.spec, 1 << HYRAX_NUM_VARS, 80), device=DEVICE)
     comms, _ = PC.commit(keys["hyrax"], [LabeledPolynomial("p", poly, num_vars=HYRAX_NUM_VARS)],
                          HostRng(81))
     return [tuple(int(v) for v in t[:2]) + (bool(t[2]),) for t in comms[0].commitment.row_coms]
@@ -227,13 +230,14 @@ def case_brakedown_encode(keys):
 
 
 def case_ligero_encode(keys):
-    return _encode(LC.MultilinearLigeroBN254, LIGERO, LIGERO_COLS, CODE_SEEDS["ligero"])
+    pp = LC.MultilinearLigeroBN254.code.setup(0, LIGERO_NUM_VARS, None, device=DEVICE)
+    return _encode(LC.MultilinearLigeroBN254, pp, LIGERO_COLS, CODE_SEEDS["ligero"])
 
 
 def case_ipa_open(keys):
     PC = ipa_pc.InnerProductArgPC
     rng = HostRng(3)
-    lp = LabeledPolynomial("p", F.from_ints(PC.spec, rng.field_ints(PC.spec, IPA_DEGREE + 1), device=CPU))
+    lp = LabeledPolynomial("p", F.from_ints(PC.spec, rng.field_ints(PC.spec, IPA_DEGREE + 1), device=DEVICE))
     comms, states = PC.commit(keys["ipa"], [lp], rng)
     qs = {("p", ("z", rng.field_int(PC.spec)))}
     proofs, values = PC.batch_open(keys["ipa"], [lp], comms, qs, PoseidonSponge(PC.spec), states, rng)
@@ -266,11 +270,40 @@ def _digest_guard(mesh):
     return None
 
 
-def run():
+# the mesh layer's entry points: a case that calls one ran its sharded branch
+ROUTES = ("msm_sharded", "batch_msm_sharded", "map_rows", "batch_ntt_sharded", "row_mul_sharded",
+          "fold_key_sharded", "_transpose_sharded")
+
+
+@contextlib.contextmanager
+def _routes():
+    """Within the block, the names of ROUTES called (the module's functions
+    wrapped, so calls from inside parallel/mesh.py count too)."""
+    called = set()
+    saved = {name: getattr(PM, name) for name in ROUTES}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            called.add(name)
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(PM, name, counted(name, fn))
+    try:
+        yield called
+    finally:
+        for name, fn in saved.items():
+            setattr(PM, name, fn)
+
+
+def run(device="cpu"):
+    global DEVICE
+    DEVICE = device
     torch.set_num_threads(1)
-    mesh = PM.make_mesh(device=CPU)
+    mesh = PM.make_mesh(device=torch.device(device))
     rank = mesh.index()
-    out = {"rank": rank, "single": {}, "mesh": {}}
+    out = {"rank": rank, "single": {}, "mesh": {}, "routes": {}}
     keys = {name: build() for name, (owner, build) in KEYS.items() if owner == rank}
     for name, (owner, case) in CASES.items():
         if owner == rank:
@@ -281,11 +314,13 @@ def run():
         keys[name] = box[0]
     with PM.use_mesh(mesh):
         for name, (_, case) in CASES.items():
-            out["mesh"][name] = case(keys)
+            with _routes() as called:
+                out["mesh"][name] = case(keys)
+            out["routes"][name] = sorted(called)
     out["mesh"]["digest_guard"] = _digest_guard(mesh)
-    out["mesh"]["replicate"] = PM.replicate(torch.full((3,), 10 + rank), mesh).tolist()
-    out["mesh"]["shard_batch"] = PM.shard_batch(torch.arange(ROWS), mesh).tolist()
-    mesh_2d = PM.make_mesh_2d(2, 2, device=CPU)
+    out["mesh"]["replicate"] = PM.replicate(torch.full((3,), 10 + rank, device=mesh.device), mesh).tolist()
+    out["mesh"]["shard_batch"] = PM.shard_batch(torch.arange(ROWS, device=mesh.device), mesh).tolist()
+    mesh_2d = PM.make_mesh_2d(2, 2, device=torch.device(device))
     out["coords_2d"] = mesh_2d.coords
     with PM.use_mesh(mesh_2d, "dp"):
         out["mesh"]["msm_64_dp"] = CASES["msm_64"][1](keys)
