@@ -40,11 +40,14 @@ Three phases, one JSON line a check (times in ms):
      the c = 8 MSMs' (32, 2^15) and a chunk of Hyrax's batched MSM
      (2^14, 2^11); K4a/K4b/K4c the NTT stages on the BN254 and BLS12-381
      scalar fields, K4a's 2^9-point transform and K4c four stages in one
-     launch each beside the chain of one-stage launches), with the
-     kernel's time, the plain version's and, where one PyTorch call
-     computes the same function, that call's, and the kernel's bound: the
-     larger of its least bytes over the HBM rate and its integer
-     multiply-adds over the card's IMAD peak;
+     launch each beside the chain of one-stage launches; blake2s_columns,
+     the linear codes' column hash, digest for digest against hashlib over
+     the plain route's column bytes at Ligero's 256 x 32,768 BN254 Fr
+     matrix, beside that route's time), with the kernel's time, the plain
+     version's and, where one PyTorch call computes the same function,
+     that call's, and the kernel's bound: the larger of its least bytes
+     over the HBM rate and its integer multiply-adds over the card's IMAD
+     peak;
   3. a 2^12-point BLS12-381 G1 MSM, and a G2 (BLS12-381) and a JubJub MSM
      of 2^10 points, against the host big-int oracle.
 Then the kernel table (an entry a kernel: its source, the TPU function it
@@ -69,6 +72,9 @@ from port_bench import yardstick
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 IMAD_PER_PRODUCT = yardstick.imad_per_product(8)  # CIOS on 8 32-bit words
 IMAD_PER_FQ_PRODUCT = yardstick.imad_per_product(12)  # CIOS on 12 32-bit words
+# one Blake2s compression: 10 rounds x 8 G x (two three-input adds, two
+# adds, four xors, four rotates)
+BLAKE2S_OPS_PER_COMPRESSION = 10 * 8 * 12
 SIDE_MSM_LOG_N = 10  # the G2 and JubJub MSMs of phase 3 (host oracle cost)
 
 
@@ -166,6 +172,7 @@ class Smoke:
     # K4a's one-stage form
     NTT_KERNEL_SHAPE = (1 << 23, 15, 1 << 21)
     NTT_SMALL_LOG_N = 9  # K4a's one-launch transform
+    BLAKE2S_SHAPE = (256, 1 << 15)  # Ligero's encoded matrix: rows, columns
 
     def __init__(self):
         import torch
@@ -192,7 +199,8 @@ class Smoke:
                         "g2": "poly_commit_tpu_torch/csrc/ec_g2.cu",
                         "ed": "poly_commit_tpu_torch/csrc/ec_ed.cu",
                         "digit": "poly_commit_tpu_torch/csrc/digit_sort.cu",
-                        "k4a": ntt_src, "k4b": ntt_src, "k4c": ntt_src}
+                        "k4a": ntt_src, "k4b": ntt_src, "k4c": ntt_src,
+                        "blake2s": "poly_commit_tpu_torch/csrc/blake2s.cu"}
         # the power: _ff_inv's lax.scan (poly_commit_tpu/core/msm_tpu.py:850)
         # runs the TPU's K1 once a product; the inversion tree and the sum
         # replace loops of K1 launches (IPA's _fsum, pcs/ipa_pc.py:212)
@@ -211,7 +219,9 @@ class Smoke:
                          "digit": "poly_commit_tpu/core/sort_tpu.py:141",
                          "k4a": "poly_commit_tpu/core/ntt_lf.py:48",
                          "k4b": "poly_commit_tpu/core/ntt_lf.py:93",
-                         "k4c": "poly_commit_tpu/core/ntt_lf.py:179"}
+                         "k4c": "poly_commit_tpu/core/ntt_lf.py:179",
+                         # no TPU kernel: the JAX package hashes columns with hashlib
+                         "blake2s": "none (hashlib: poly_commit_tpu/pcs/linear_codes/engine.py:71)"}
 
     # -- helpers ----------------------------------------------------------
     def rand_field(self, spec, n):
@@ -283,7 +293,8 @@ class Smoke:
         g1_12, g2_12 = nw12(ptxas["ec_g1"]), nw12(ptxas["ec_g2"])
         # machine instructions per kernel (the product's body counted in each
         # kernel that calls or inlines it)
-        sass = {name: sass_counts(D.library_path(name)) for name in ("ff", "ec_g1", "ntt")}
+        sass = {name: sass_counts(D.library_path(name))
+                for name in ("ff", "ec_g1", "ntt", "blake2s")}
         emit({"phase": "build", "nvcc_s": D.BUILD_SECONDS, "ptxas": ptxas,
               "g1_nw12_entries": len(g1_12), "g1_nw12_spill_bytes": spill_bytes(g1_12),
               "g2_nw12_entries": len(g2_12), "g2_nw12_spill_bytes": spill_bytes(g2_12),
@@ -1137,6 +1148,52 @@ class Smoke:
             self.kernels[name]["max_abs_err"] = errs[kind]  # over both fields
         return all(e == 0 for e in errs.values())
 
+    def check_blake2s(self):
+        """blake2s_columns at Ligero's commit shape (256 rows x 32,768
+        columns of BN254 Fr, lazy values below 2p) against hashlib over the
+        plain route's column bytes (engine.column_bytes: a transpose, K1 out
+        of Montgomery form, one pageable copy), digest for digest, in one
+        launch. ``ms`` is the kernel (CUDA events), ``call_ms`` the wrapper
+        with the digests' read and split, ``plain_ms`` the plain route with
+        its 32,768 hashlib calls (host clock); ``max_abs_err`` counts the
+        digests that differ."""
+        import hashlib
+
+        from poly_commit_tpu_torch.core import field_params as FP
+        from poly_commit_tpu_torch.pcs.linear_codes import engine
+        from poly_commit_tpu_torch.utils import merkle
+
+        torch = self.torch
+        spec = FP.FR_BN254
+        n_rows, n_ext = self.BLAKE2S_SHAPE
+        ext = self.lazy(spec, n_rows * n_ext).T.reshape(n_rows, n_ext, spec.n_limbs).contiguous()
+
+        def host_ms(fn, reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = fn()
+            return out, (time.perf_counter() - t0) * 1e3 / reps
+
+        want, plain_ms = host_ms(lambda: [hashlib.blake2s(col.tobytes()).digest()
+                                          for col in engine.column_bytes(spec, ext)], 1)
+        before = merkle.blake2s_columns.launches
+        got = merkle.blake2s_columns(spec, ext)
+        one_launch = merkle.blake2s_columns.launches - before == 1
+        wrong = sum(g != w for g, w in zip(got, want)) + abs(len(got) - len(want))
+        ms = time_ms(lambda: merkle._digest_words(spec, ext), 20)
+        _, call_ms = host_ms(lambda: merkle.blake2s_columns(spec, ext), 5)
+        # the limbs read once, the digests written once; a compression a
+        # block of two rows, a product by 1 an element
+        n_bytes = n_rows * n_ext * spec.n_limbs * 4 + n_ext * merkle.DIGEST_BYTES
+        n_ops = (n_ext * ((n_rows + 1) // 2) * BLAKE2S_OPS_PER_COMPRESSION
+                 + n_rows * n_ext * IMAD_PER_PRODUCT)
+        bounds = self.entry("blake2s_columns", "blake2s", wrong, ms, plain_ms, n_bytes, n_ops)
+        emit({"phase": "kernels", "kernel": "blake2s_columns", "field": spec.name, "rows": n_rows,
+              "columns": n_ext, "max_abs_err": wrong, "one_launch": one_launch, "ms": ms,
+              "call_ms": call_ms, "plain_ms": plain_ms, **bounds})
+        return wrong == 0 and one_launch
+
     # -- phase 3 ----------------------------------------------------------
     def check_msm(self):
         import random
@@ -1209,7 +1266,8 @@ def main() -> int:
                    "ff_batch_inv": smoke.check_batch_inv(), "ff_sum": smoke.check_fsum(),
                    "ec": smoke.check_ec(), "g2": smoke.check_g2(),
                    "ed": smoke.check_ed(), "sort": smoke.check_sort(),
-                   "ntt_kernels": smoke.check_ntt_kernels(), "msm": smoke.check_msm(),
+                   "ntt_kernels": smoke.check_ntt_kernels(), "blake2s": smoke.check_blake2s(),
+                   "msm": smoke.check_msm(),
                    "msm_g2_jubjub": smoke.check_side_msms()}
     except Exception:  # a failing phase: report it and exit non-zero
         traceback.print_exc()

@@ -31,7 +31,7 @@ DEFAULT_DEVICE = "cuda"
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("ff", "ec_g1", "ec_g2", "ec_ed", "digit_sort", "ntt")
+SOURCES = ("ff", "ec_g1", "ec_g2", "ec_ed", "digit_sort", "ntt", "blake2s")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

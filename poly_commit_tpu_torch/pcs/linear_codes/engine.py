@@ -10,19 +10,22 @@ The code (Ligero here) supplies the dimensions, the batched row encode on
 the device, the tensors and the point's field elements.
 
 The coefficient matrix and its encoding stay on the device; v = b^T M is
-one K1 product and a log-depth sum of rows. Column hashing and the Merkle
-tree run on the host. ``commit`` takes every column's bytes from the
-device in one pass (``column_leaves``), never through Python ints; the
-leaves are the bytes the JAX package hashes. ``open`` and ``check`` touch
-t columns and stay on Python ints. Under an active mesh of more than one
-rank whose axis size divides the rows, v = b^T M shards its rows
-(``parallel.mesh.row_mul_sharded``), as the JAX package's branch does.
+one K1 product and a log-depth sum of rows. ``commit`` hashes the columns
+where the matrix lies (``column_leaves``): on the card in one kernel
+launch that reads only the digests back, on the CPU through one pass of
+column bytes and hashlib, never through Python ints; the leaves are the
+digests the JAX package computes. The Merkle tree runs on the host.
+``open`` and ``check`` touch t columns and stay on Python ints. Under an
+active mesh of more than one rank whose axis size divides the rows,
+v = b^T M shards its rows (``parallel.mesh.row_mul_sharded``), as the JAX
+package's branch does.
 
 Quiet spans (utils/trace.py): ``LinearCode::encode`` around the row encode,
-``Merkle::leaves`` around the column hashes (its read from the card is a
-``Serialize::to_host`` child), ``Merkle::tree`` around each tree build
-(utils/merkle.py) and around an opening's loop over its paths. The counter
-``hashed_bytes`` counts the bytes given to Blake2s and SHA-256.
+``Merkle::leaves`` around the column hashes (its read from the card, of
+the digests, is a ``Serialize::to_host`` child), ``Merkle::tree`` around
+each tree build (utils/merkle.py) and around an opening's loop over its
+paths. The counter ``hashed_bytes`` counts the bytes given to Blake2s and
+SHA-256.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ...core import poly as P
 from ...core.serialize import fields_to_bytes, mont_limbs_to_bytes
 from ...parallel import mesh as PM
 from ...utils import trace
-from ...utils.merkle import MerklePath, MerkleTree, blake2s_hash, verify_path
+from ...utils.merkle import MerklePath, MerkleTree, blake2s_columns, blake2s_hash, verify_path
 from ...utils.trace import traced
 from .. import errors
 from ..data_structures import LabeledCommitment, PolynomialCommitment
@@ -94,10 +97,13 @@ def column_bytes(spec, ext_mat: torch.Tensor):
 @trace.traced("Merkle::leaves", log=False)
 def column_leaves(spec, ext_mat: torch.Tensor) -> List[bytes]:
     """Blake2s of each column of (n_rows, n_ext, L): ``_col_hash`` of its
-    canonical ints."""
-    cols = column_bytes(spec, ext_mat)
-    trace.count("hashed_bytes", cols.size)
-    return [blake2s_hash(col.tobytes()) for col in cols]
+    canonical ints. On the CPU, hashlib over ``column_bytes``; on any other
+    device, ``blake2s_columns``' one kernel launch (CUDA only)."""
+    n_rows, n_ext = ext_mat.shape[0], ext_mat.shape[1]
+    trace.count("hashed_bytes", n_ext * n_rows * spec.serialized_size())
+    if ext_mat.device.type != "cpu":
+        return blake2s_columns(spec, ext_mat)
+    return [blake2s_hash(col.tobytes()) for col in column_bytes(spec, ext_mat)]
 
 
 def _row_mul(spec, vec: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:

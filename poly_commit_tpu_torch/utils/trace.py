@@ -34,7 +34,9 @@ The port's counters: ``host_syncs``, one wherever the host waits for the
 card (each read from it, each copy to it from pageable host memory: what
 torch's sync debug mode warns of); ``msm_points_run``, the points an MSM
 scans after padding; ``poseidon_permutations``; ``poseidon_native_calls``,
-one a crossing into the native sponge (csrc/poseidon.cpp).
+one a crossing into the native sponge (csrc/poseidon.cpp);
+``blake2s_device_columns``, the columns a launch of the card's column hash
+digests (utils/merkle.py ``blake2s_columns``).
 
 With neither switch on, a quiet scope costs one flag read and a logging
 one the environment read besides; ``count`` costs one flag read.

@@ -7,6 +7,7 @@ runs on a GPU machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import hashlib
 import io
 import random
 
@@ -549,7 +550,57 @@ def test_ntt_small_kernel_matches_plain(cuda, spec, log_n):
         assert torch.equal(got.cpu(), ntt_lf.small_plain(spec, a, tws))
 
 
-GOLDENS = ["marlin_ark_golden", "marlin_bounded_ark_golden", "sonic_ark_golden"]
+def _lazy_columns(spec, n_rows, n_ext, seed, device):
+    """(n_rows, n_ext, 16) int32 limbs of values below 2p (top limb below
+    2p's), with 0, p, 2p - 1 and p - 1 planted where there is room."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t = torch.randint(0, 1 << 16, (n_rows, n_ext, spec.n_limbs), generator=gen, device=device,
+                      dtype=torch.int32)
+    top = (2 * spec.modulus) >> (16 * (spec.n_limbs - 1))
+    t[..., -1] = torch.randint(0, top, (n_rows, n_ext), generator=gen, device=device,
+                               dtype=torch.int32)
+    flat = t.view(-1, spec.n_limbs)
+    for i, v in ((0, 0), (1, spec.modulus), (-2, 2 * spec.modulus - 1), (-1, spec.modulus - 1)):
+        if -flat.shape[0] <= i < flat.shape[0]:
+            flat[i] = torch.tensor([(v >> (16 * k)) & 0xFFFF for k in range(spec.n_limbs)],
+                                   dtype=torch.int32)
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ext", [1, 33, 1 << 15])
+@pytest.mark.parametrize("n_rows", [1, 2, 3, 255, 256, 257])
+@pytest.mark.parametrize("spec", [FP.FR_BN254, FP.FR_BLS12_381], ids=lambda s: s.name)
+def test_blake2s_columns_kernel_matches_hashlib(cuda, spec, n_rows, n_ext):
+    """pc_blake2s_columns' digests, through engine.column_leaves on a CUDA
+    tensor, equal hashlib's Blake2s over engine.column_bytes (the CPU
+    route's bytes) of the same limbs: half a block, one block and a tail a
+    column, lazy values in [p, 2p), 0 and p - 1 among them. One launch; on
+    the Merkle::leaves record, hashed_bytes and blake2s_device_columns
+    n_ext; its one child the digests' read, one host sync."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from poly_commit_tpu_torch.pcs.linear_codes import engine
+    from poly_commit_tpu_torch.utils import merkle, trace
+
+    ext = _lazy_columns(spec, n_rows, n_ext, n_rows * 7 + n_ext, cuda)
+    want = [hashlib.blake2s(col.tobytes()).digest() for col in engine.column_bytes(spec, ext)]
+    before = merkle.blake2s_columns.launches
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = engine.column_leaves(spec, ext)
+    assert merkle.blake2s_columns.launches == before + 1
+    assert got == want
+    recs = trace.records()
+    leaves = [r for r in recs if r.name == "Merkle::leaves"]
+    assert [r.counts for r in leaves] == [{"hashed_bytes": n_ext * n_rows * 32,
+                                           "blake2s_device_columns": n_ext}]
+    assert [(r.name, r.counts) for r in recs if r.parent == leaves[0].id] == [
+        ("Serialize::to_host", {"host_syncs": 1})]
+
+
+GOLDENS =["marlin_ark_golden", "marlin_bounded_ark_golden", "sonic_ark_golden"]
 
 
 @pytest.mark.gpu

@@ -39,6 +39,7 @@ from poly_commit_tpu_torch.core import ntt as NTT  # noqa: E402
 from poly_commit_tpu_torch.core import poly as P  # noqa: E402
 from poly_commit_tpu_torch.core.transcript import PoseidonSponge  # noqa: E402
 from poly_commit_tpu_torch.pcs.data_structures import HostRng, LabeledPolynomial  # noqa: E402
+from poly_commit_tpu_torch.utils import merkle  # noqa: E402
 
 LOG_DEGREE = 20  # the KZG paths' degree 2^20 - 1: Marlin's SRS in marlin.d20.proof9
 NTT_LOG_N = 22
@@ -70,12 +71,14 @@ def cuda():
 
 def _counts():
     """Every kernel wrapper's launches so far, by name (ff_mont_mul,
-    ec_madd_scan, ec_g2_add, ec_ed_smul, digit_sort, ntt_stages, ...)."""
+    ec_madd_scan, ec_g2_add, ec_ed_smul, digit_sort, ntt_stages,
+    blake2s_columns, ...)."""
     wrappers = {**{f"ff_{w.__name__}": w for w in ff.WRAPPERS},
                 **{f"ec_{w.__name__}": w
                    for w in ec_lf.WRAPPERS + ec_lf.G2_WRAPPERS + ec_lf.ED_WRAPPERS},
                 "digit_sort": sort_gpu.digit_sort,
-                **{f"ntt_{w.__name__}": w for w in ntt_lf.WRAPPERS}}
+                **{f"ntt_{w.__name__}": w for w in ntt_lf.WRAPPERS},
+                "blake2s_columns": merkle.blake2s_columns}
     return {name: w.launches for name, w in wrappers.items()}
 
 
@@ -236,9 +239,10 @@ def test_ntt_round_trip_against_host_horner(cuda, log_n):
 def test_ligero_round_trip(cuda, which):
     """MultilinearLigeroBN254 at 22 variables and UnivariateLigero over
     BLS12-381 Fr at degree 2^20 - 1: batch_check accepts and rejects the
-    value plus one, and the encode ran on K4b and K4c. The univariate
-    scheme's value is held against host Horner and its root against the
-    commit's parts (encode, column bytes, Blake2s, the Merkle tree); the
+    value plus one, the encode ran on K4b and K4c and the column hashes in
+    one pc_blake2s_columns launch a commit. The univariate scheme's value
+    is held against host Horner and its root against the commit's parts
+    (encode, column bytes, hashlib's Blake2s, the Merkle tree); the
     multilinear scheme's are held by the cell ligero_ml.bn254.nv22.prove."""
     from poly_commit_tpu_torch.pcs import linear_codes as LC
     from poly_commit_tpu_torch.pcs.linear_codes import engine
@@ -273,6 +277,7 @@ def test_ligero_round_trip(cuda, which):
         assert MerkleTree(leaves, ck.merkle_config()).root == comms[0].commitment.root
     assert _missing(launches, ("ntt_fused_stages", "ntt_stages", "ff_mont_mul", "ff_add")
                     + (("ff_sub",) if ml else ())) == []
+    assert launches["blake2s_columns"] == 1
 
 
 # -- MultilinearPC over BLS12-381 at 20 variables -----------------------------
@@ -452,7 +457,8 @@ def test_r1cs_ipa_verifier_gadget_on_the_key(cuda, ipa):
 def test_brakedown_round_trip(cuda):
     """setup -> trim -> commit -> batch_open -> batch_check: the value
     equals the host MLE fold, the check accepts it and rejects it plus one,
-    and the root equals the commit's parts (encode, column bytes, Blake2s,
+    the commit hashed its columns in one pc_blake2s_columns launch, and the
+    root equals the commit's parts (encode, column bytes, hashlib's Blake2s,
     the Merkle tree)."""
     from poly_commit_tpu_torch.pcs import linear_codes as LC
     from poly_commit_tpu_torch.pcs.linear_codes import engine
@@ -477,6 +483,7 @@ def test_brakedown_round_trip(cuda):
     leaves = [blake2s_hash(c.tobytes()) for c in raw]
     assert MerkleTree(leaves, ck.merkle_config()).root == comms[0].commitment.root
     assert _missing(launches, ("ff_mont_mul", "ff_add", "ff_sub")) == []
+    assert launches["blake2s_columns"] == 1
 
 
 # -- Hyrax over BN254 at 22 variables -----------------------------------------

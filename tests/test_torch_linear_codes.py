@@ -7,7 +7,8 @@ vector), the opened values and the verdicts must be equal. The port runs
 on the CPU, where its NTT kernels (K4a/K4b/K4c) and K1 are their plain
 PyTorch versions. Also here: the Reed-Solomon encode against direct
 evaluation, the multilinear helpers of core/poly.py, the column bytes taken
-from the device, a JAX commitment opened by the port (pcs/convert.py) and
+from the device and their hashes, the column-hash kernel's message layout
+and refusals, a JAX commitment opened by the port (pcs/convert.py) and
 Merkle tampering.
 """
 
@@ -37,12 +38,12 @@ import poly_commit_tpu_torch.pcs.data_structures as tDS  # noqa: E402
 import poly_commit_tpu_torch.pcs.linear_codes as tLC  # noqa: E402
 from poly_commit_tpu_torch.core import ff, serialize  # noqa: E402
 from poly_commit_tpu_torch.core import ntt as tNTT  # noqa: E402
-from poly_commit_tpu_torch.core.field_params import FR_BLS12_381, FR_BN254  # noqa: E402
+from poly_commit_tpu_torch.core.field_params import FQ_BLS12_381, FR_BLS12_381, FR_BN254  # noqa: E402
 from poly_commit_tpu_torch.pcs import convert  # noqa: E402
 from poly_commit_tpu_torch.pcs import errors as terrors  # noqa: E402
 from poly_commit_tpu_torch.pcs.linear_codes import engine as tE  # noqa: E402
 from poly_commit_tpu_torch.pcs.linear_codes.ligero import LigeroPCParams, _rs_encode_rows  # noqa: E402
-from poly_commit_tpu_torch.utils.merkle import MerkleTree, verify_path  # noqa: E402
+from poly_commit_tpu_torch.utils.merkle import MerkleTree, blake2s_columns, verify_path  # noqa: E402
 pytest_plugins = ("tests.torch_port_jax",)  # frees JAX executables between files
 
 JAX = types.SimpleNamespace(F=jF, DS=jDS, T=jT, dev={}, PC={
@@ -197,6 +198,63 @@ def test_column_bytes_from_the_device_match_field_to_bytes(spec):
     assert tE.column_leaves(spec, ext) == [jE._col_hash(spec, col) for col in by_col]
     assert tE._col_hash(spec, by_col[0]) == hashlib.blake2s(
         serialize.fields_to_bytes(spec, by_col[0])).digest()
+
+
+def _lazy_mont_matrix(spec, ints, rows, cols, seed):
+    """(rows, cols, L) int32 Montgomery limbs of ints (row-major), about
+    half of them lifted by p into [p, 2p), the lazy form the kernels keep."""
+    rnd = np.random.default_rng(seed)
+    mont = [v * spec.R_mod_p % spec.modulus for v in ints]
+    mont = [m + spec.modulus if lift else m for m, lift in zip(mont, rnd.random(len(mont)) < 0.5)]
+    data = b"".join(m.to_bytes(2 * spec.n_limbs, "little") for m in mont)
+    limbs = np.frombuffer(data, "<u2").astype(np.int32).reshape(rows, cols, spec.n_limbs)
+    return torch.from_numpy(limbs.copy())
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3])
+@pytest.mark.parametrize("spec", [FR_BLS12_381, FR_BN254], ids=lambda s: s.name)
+def test_column_leaves_on_cpu_match_hashlib(spec, rows):
+    """The CPU route of column_leaves (column_bytes, then hashlib) on lazy
+    Montgomery limbs, 0 and p - 1 among them: a half block, one block and
+    one block and a half a column, each digest hashlib's Blake2s of the
+    column's fields_to_bytes."""
+    rng = tDS.HostRng(6 + rows)
+    cols = 4
+    ints = rng.field_ints(spec, rows * cols)
+    ints[0], ints[-1] = 0, spec.modulus - 1
+    ext = _lazy_mont_matrix(spec, ints, rows, cols, rows)
+    by_col = [[ints[r * cols + c] for r in range(rows)] for c in range(cols)]
+    want = [hashlib.blake2s(serialize.fields_to_bytes(spec, col)).digest() for col in by_col]
+    assert tE.column_leaves(spec, ext) == want
+
+
+@pytest.mark.parametrize("spec", [FR_BLS12_381, FR_BN254], ids=lambda s: s.name)
+def test_packed_limb_words_are_field_to_bytes(spec):
+    """The column-hash kernel's message layout: canonical 16-bit limbs
+    packed in pairs into little-endian 32-bit words (limb 2k low, 2k + 1
+    high, as fe_load_packed packs them) are field_to_bytes of the value."""
+    ints = tDS.HostRng(9).field_ints(spec, 6) + [0, 1, spec.modulus - 1]
+    limbs = ff.from_ints(spec, ints, mont=False, device="cpu").T.numpy().astype(np.uint32)
+    words = limbs[:, 0::2] | (limbs[:, 1::2] << 16)  # (N, 8)
+    assert [w.astype("<u4").tobytes() for w in words] == [
+        serialize.field_to_bytes(spec, v) for v in ints]
+
+
+@pytest.mark.parametrize("case", ["fq_bls12_381", "shape", "dtype", "cpu_tensor"])
+def test_blake2s_columns_refuses_what_the_kernel_does_not_take(case):
+    """The card's column hash takes 16-limb fields of 32 serialized bytes,
+    (n_rows, n_ext, 16) int32 limbs, on a CUDA device; anything else
+    raises before a launch."""
+    spec, shape, dtype = FR_BN254, (3, 5, 16), torch.int32
+    if case == "fq_bls12_381":
+        spec, shape = FQ_BLS12_381, (3, 5, 24)
+    elif case == "shape":
+        shape = (15, 16)
+    elif case == "dtype":
+        dtype = torch.int64
+    with pytest.raises(ValueError):
+        blake2s_columns(spec, torch.zeros(shape, dtype=dtype))
+    assert blake2s_columns.launches == 0
 
 
 def test_merkle_path_tamper_detected():
